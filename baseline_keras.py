@@ -7,7 +7,7 @@ a depth-3 3D U-Net (n_base_filters=32, two convs per level, transposed-conv
 decoder, sigmoid head) trained with soft-Dice (negative dice, smooth=1) via
 Adam on single 64^3 patches, plus sliding-window whole-volume inference
 (128^3 volume, 64^3 patches, overlap 16 -> 27 patches) with host Gaussian
-overlap-add — exactly the composite that bench.py measures on TPU.
+overlap-add — exactly the composite that bench.py measures on the GPU.
 
 Writes baseline_cpu_keras.json:
   {"train_step_sec": ..., "patch_infer_sec_per_patch": ...,

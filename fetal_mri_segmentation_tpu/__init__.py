@@ -1,8 +1,8 @@
-"""fetal_mri_segmentation_tpu — a TPU-native (JAX/XLA/Pallas) framework for 3D
+"""fetal_mri_segmentation_tpu — a JAX/XLA framework for 3D
 fetal-MRI segmentation with the full capabilities of
 GalDude33/Fetal-MRI-Segmentation (Keras 3D U-Net lineage, ellisdg/3DUnetCNN).
 
-This is a from-scratch TPU-first design, not a port:
+This is a from-scratch accelerator-first design, not a port:
 
 - one pure-functional core (``init / train_step / predict_volume`` as jitted
   functions over pytrees), RNG as explicit ``jax.random`` keys;
@@ -13,8 +13,9 @@ This is a from-scratch TPU-first design, not a port:
 - sliding-window inference with Gaussian overlap-add reconstruction is a
   single on-device ``lax.scan`` (reference: unet3d/prediction.py::
   patch_wise_prediction + unet3d/utils/patches.py::reconstruct_from_patches);
-- multi-chip training is data-parallel over a ``jax.sharding.Mesh`` with
-  gradient psum over ICI (net-new; the reference is single-device).
+- multi-device training is data-parallel over a ``jax.sharding.Mesh`` with
+  a gradient psum (NCCL over NVLink between GPUs; net-new, the reference
+  is single-device).
 
 Public surface kept from the reference: train/predict/evaluate entry points,
 the HDF5 dataset contract (``data``/``truth``/``affine`` arrays), split

@@ -54,20 +54,19 @@ class Config:
     dropout_rate: float = 0.3  # isensee SpatialDropout3D rate
     n_segmentation_levels: int = 3  # isensee deep-supervision heads
     include_label_wise_dice_coefficients: bool = False  # per-label metrics
-    compute_dtype: str = "bfloat16"  # TPU-native: bf16 compute, fp32 params
-    use_pallas_conv: bool = False  # fused implicit-GEMM conv kernels (TPU)
-    use_pallas_dec0: bool = False  # one-Pallas-program decoder level (TPU)
+    compute_dtype: str = "bfloat16"  # bf16 compute, fp32 params
     fold_level0: Any = "auto"  # space-to-depth at the full-resolution
         # level (both model families): exact math, same checkpoint layout
-        # (ops/fold.py; docs/PERF.md round-5 addendum 18). "auto" (default)
-        # applies the measured-winner fold on TPU for BATCH-1 programs
-        # when the gates pass (unet: norm-free level-0 + fused decoder;
-        # isensee: folded InstanceNorm twin; even folded axes); "off"/None
-        # disables; an explicit [f1,f2,f3] (factors in {1,2}) forces it.
-        # Env FETAL_TPU_FOLD=off disables auto process-wide.
+        # (ops/fold.py). "auto" (default) folds BATCH-1 programs on the
+        # backends where it is a measured win (models/layers.py
+        # FOLD_BACKENDS) when the gates pass (unet: norm-free level-0 +
+        # fused decoder; isensee: folded InstanceNorm twin; even folded
+        # axes); "off"/None disables; an explicit [f1,f2,f3] (factors in
+        # {1,2}) forces it.
     fold_formulation: str = "dense"  # "parity" | "parity_batched" | "dense"
     remat: bool = False  # rematerialize the forward in the backward pass
-                         # (trade FLOPs for HBM -- enables bigger patches)
+                         # (trade FLOPs for device memory -- enables
+                         # bigger patches)
 
     # --- optimization -------------------------------------------------------
     batch_size: int = 6
@@ -95,11 +94,11 @@ class Config:
     gaussian_recon_sigma_scale: float = 0.125  # Gaussian importance-map sigma
                                                # as a fraction of patch size
     device_case_cache: str = "auto"  # "auto" | "on" | "off": keep all cases
-                                     # HBM-resident and gather patches on
+                                     # device-resident and gather patches on
                                      # device (single-device and pure-DP
                                      # training); auto falls back to host
                                      # staging when the padded stacks exceed
-                                     # the HBM budget or the mesh is
+                                     # the device budget or the mesh is
                                      # spatial/hybrid
 
     # --- normalization ------------------------------------------------------
@@ -120,7 +119,7 @@ class Config:
     num_devices: Optional[int] = None  # None = all visible devices (DP mesh)
     spatial_devices: int = 1  # >1: hybrid data x spatial mesh — volume depth
                               # sharded with XLA halo exchange (whole-volume
-                              # training beyond one chip's HBM)
+                              # training beyond one card's memory)
 
     # -------------------------------------------------------------------------
     def __post_init__(self):

@@ -13,12 +13,14 @@ add_data_to_storage, open_data_file):
   to the uniform ``image_shape`` (linear for images / nearest for truth);
 - optional z-score normalization pass over the stored volumes.
 
-Implementation notes (TPU build): h5py instead of PyTables (not in this
-image); chunked per-volume with gzip-1 compression — chunking by whole volume
-makes the training-time case reads single-chunk sequential I/O, which is what
-the host→HBM prefetch path wants. A thin `DataFile` wrapper provides the
-reference's PyTables-style ``.root.data[...]`` access so downstream code and
-user muscle memory keep working.
+Implementation notes: h5py instead of PyTables; chunked per-volume with
+gzip-1 compression — chunking by whole volume makes the training-time case
+reads single-chunk sequential I/O, which is what the host→device prefetch
+path wants. A thin `DataFile` wrapper provides the reference's PyTables-style
+``.root.data[...]`` access so downstream code and user muscle memory keep
+working; `DataFile.from_arrays` serves the same surface from in-memory
+arrays (no HDF5 file, no h5py). h5py is imported only when an HDF5 file is
+opened or written.
 """
 
 from __future__ import annotations
@@ -26,11 +28,29 @@ from __future__ import annotations
 import os
 from typing import List, Optional, Sequence, Tuple
 
-import h5py
 import numpy as np
 
 from fetal_mri_segmentation_tpu.utils.geometry import process_case_images
 from fetal_mri_segmentation_tpu.utils.nifti import load_nifti
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "HDF5 dataset files need the h5py package, which is not "
+            "installed; install h5py, or pass the arrays directly with "
+            "DataFile.from_arrays") from e
+    return h5py
+
+
+class _ArrayStore(dict):
+    """In-memory stand-in for an open h5py file: name -> numpy array."""
+    filename = "<memory>"
+
+    def close(self) -> None:
+        pass
 
 
 class _Root:
@@ -44,7 +64,7 @@ class _Root:
     the native layout for full-speed reads).
     """
 
-    def __init__(self, h5: h5py.File):
+    def __init__(self, h5):
         self._h5 = h5
         self._wrapped = {}
 
@@ -54,9 +74,12 @@ class _Root:
         except KeyError as e:
             raise AttributeError(name) from e
         if name not in self._wrapped:
+            if isinstance(self._h5, _ArrayStore):
+                self._wrapped[name] = dset
+                return dset
             from fetal_mri_segmentation_tpu.data.blosc_compat import (
                 BloscDataset, blosc_available, is_unreadable_blosc)
-            wrap = (isinstance(dset, h5py.Dataset)
+            wrap = (isinstance(dset, _h5py().Dataset)
                     and is_unreadable_blosc(dset))
             if wrap and not blosc_available():
                 raise RuntimeError(
@@ -72,10 +95,26 @@ class _Root:
 class DataFile:
     """Open dataset handle. Reference surface: tables.open_file(...).root.*"""
 
-    def __init__(self, h5: h5py.File):
+    def __init__(self, h5):
         self._h5 = h5
         self.root = _Root(h5)
         self.filename = h5.filename
+
+    @classmethod
+    def from_arrays(cls, data: np.ndarray, truth: np.ndarray,
+                    affine: Optional[np.ndarray] = None,
+                    subject_ids: Optional[Sequence[str]] = None
+                    ) -> "DataFile":
+        """The dataset contract (``data`` (N, C, *shape) float32, ``truth``
+        (N, 1, *shape), ``affine`` (N, 4, 4)) from in-memory arrays."""
+        n = len(data)
+        store = _ArrayStore(
+            data=np.asarray(data, np.float32), truth=np.asarray(truth),
+            affine=(np.asarray(affine, np.float64) if affine is not None
+                    else np.tile(np.eye(4), (n, 1, 1))))
+        if subject_ids is not None:
+            store["subject_ids"] = np.asarray(list(subject_ids), object)
+        return cls(store)
 
     def close(self) -> None:
         self._h5.close()
@@ -92,7 +131,7 @@ class DataFile:
 
 def open_data_file(filename: str, readwrite: str = "r") -> DataFile:
     """Reference: data.py::open_data_file."""
-    return DataFile(h5py.File(filename, readwrite))
+    return DataFile(_h5py().File(filename, readwrite))
 
 
 def create_data_file(out_file: str, n_channels: int, n_samples: int,
@@ -102,6 +141,7 @@ def create_data_file(out_file: str, n_channels: int, n_samples: int,
     Reference: data.py::create_data_file (PyTables EArrays + blosc5; here
     fixed-size h5py datasets + gzip — same array contract).
     """
+    h5py = _h5py()
     h5 = h5py.File(out_file, "w")
     image_shape = tuple(int(s) for s in image_shape)
     h5.create_dataset("data", shape=(n_samples, n_channels) + image_shape,
@@ -158,7 +198,7 @@ def write_data_to_file(training_data_files: Sequence[Sequence[str]],
             h5.create_dataset(
                 "subject_ids",
                 data=np.asarray([str(s) for s in subject_ids], dtype=object),
-                dtype=h5py.string_dtype())
+                dtype=_h5py().string_dtype())
         if normalize:
             from fetal_mri_segmentation_tpu.data.normalize import (
                 normalize_data_storage, normalize_data_storage_per_volume,

@@ -257,7 +257,7 @@ def preprocess_case(input_path: str, config, *, crop: bool = True,
     flight (serve.py::watch_and_predict).
 
     ``device_pre`` (an ops/resample.py::DevicePreprocessor) moves the zoom
-    + normalization onto the TPU: the host only reads + crops, and the
+    + normalization onto the device: the host only reads + crops, and the
     returned ``data`` is a DEVICE array the predictor consumes without a
     host round-trip (fp-level, not bit-level, parity with the host path —
     both are pinned to the scipy oracle in tests). Truth resampling stays

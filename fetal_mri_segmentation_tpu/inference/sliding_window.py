@@ -12,7 +12,7 @@ replaces that whole stack with a single compiled program:
    in-bounds — identical semantics to the reference's out-of-bounds zero-fill;
 3. a ``lax.scan`` walks corner batches: gather patches with
    ``lax.dynamic_slice`` (vmapped), run the model on the whole patch batch
-   (MXU-efficient), multiply by the Gaussian importance map, and
+   (one large batched conv program), multiply by the Gaussian importance map, and
    scatter-accumulate into (weighted-sum, weight) HBM accumulators carried
    through the scan;
 4. one division and one device→host transfer at the end.
@@ -121,19 +121,18 @@ class SlidingWindowPredictor(ResidentParamsMixin):
         # Static unrolling: the patch grid is a compile-time constant, so the
         # overlap-add can be emitted as static-index in-place adds (XLA
         # aliases them) instead of a scan of dynamic_update_slice on a carried
-        # accumulator, which copy-on-writes the whole buffer per patch (~25x
-        # slower, measured on v5e). Very large grids fall back to the scan to
-        # bound compile time.
+        # accumulator, which copy-on-writes the whole buffer per patch. Very
+        # large grids fall back to the scan to bound compile time.
+        # Which of the three overlap-add programs is fastest on the GPU has
+        # not been measured yet (ROADMAP A5/C5).
         self.static_unroll = self._corners_np.reshape(-1, 3).shape[0] <= 512
         # Tiled (segment-sum) overlap-add: fastest path when the geometry
-        # allows it — see _init_tiled. Measured on v5e 128^3/64^3/overlap-16:
-        # whole labels program 178 -> 115 ms (the 27-update in-place add
-        # chain cost ~66 ms; one segment_sum costs ~3 ms).
+        # allows it — see _init_tiled: one segment_sum replaces the chain of
+        # per-patch in-place adds.
         self._init_tiled()
         # ONE jitted program for the whole volume — transpose, pad, predict,
         # un-pad, transpose back all inside. Anything eager here costs a
-        # full dispatch round-trip per op (brutal over a remote/tunneled
-        # device link). jax.jit is lazy: the first call still pays
+        # full dispatch round-trip per op. jax.jit is lazy: the first call still pays
         # trace+compile (amortized by the persistent compilation cache);
         # what construction fixes is that every volume after the first is
         # ONE dispatch.

@@ -2,7 +2,8 @@
 
 Public convention: all framework-level arrays are channels-first
 ``(B, C, D, H, W)`` like the reference (Keras channels_first); the models
-compute in NDHWC internally for TPU-friendly layouts. `apply_channels_first`
+compute in NDHWC internally (channels-last, the layout cuDNN and XLA's
+GPU convolutions take without a relayout). `apply_channels_first`
 does the (XLA-fused) transposes at the jit boundary.
 """
 
@@ -34,8 +35,6 @@ def build_model(config, bn_axis_name=None) -> Any:
             instance_normalization=config.instance_normalization,
             activation_name=config.activation_name,
             dtype=dtype,
-            use_pallas=getattr(config, "use_pallas_conv", False),
-            use_pallas_dec0=getattr(config, "use_pallas_dec0", False),
             bn_axis_name=bn_axis_name,
             fold_level0=getattr(config, "fold_level0", "auto"),
             fold_formulation=getattr(config, "fold_formulation", "dense"),
@@ -49,8 +48,6 @@ def build_model(config, bn_axis_name=None) -> Any:
             n_segmentation_levels=config.n_segmentation_levels,
             activation_name=config.activation_name,
             dtype=dtype,
-            use_pallas=getattr(config, "use_pallas_conv", False),
-            use_pallas_dec0=getattr(config, "use_pallas_dec0", False),
             fold_level0=getattr(config, "fold_level0", "auto"),
             fold_formulation=getattr(config, "fold_formulation", "dense"),
         )

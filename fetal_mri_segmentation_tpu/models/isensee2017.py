@@ -19,16 +19,20 @@ create_localization_module):
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+import dataclasses
+from typing import Any
 
 import jax.numpy as jnp
-from flax import linen as nn
 
+from fetal_mri_segmentation_tpu.models import layers as _layers
 from fetal_mri_segmentation_tpu.models.layers import (
-    ConvBlock, head_activation, spatial_dropout_3d, upsample_nearest)
+    ConvBlock, conv, conv_params, head_activation, spatial_dropout_3d,
+    upsample_nearest)
+from fetal_mri_segmentation_tpu.models.module import Model, Scope
 
 
-class Isensee2017(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class Isensee2017(Model):
     """Reference: unet3d/model/isensee2017.py::isensee2017_model (defaults mirrored)."""
     n_labels: int = 1
     depth: int = 5
@@ -37,28 +41,23 @@ class Isensee2017(nn.Module):
     n_segmentation_levels: int = 3
     activation_name: str = "sigmoid"
     dtype: Any = jnp.bfloat16
-    use_pallas: bool = False
-    use_pallas_dec0: bool = False  # one-program decoder level
     fuse_decoder: bool = True  # collapse upsample+conv in the up-sampling
                                # module (exact math; layers.up_concat_conv3x3)
     fold_level0: Any = "auto"  # space-to-depth at the full-resolution level
         # (ops/fold.py; folded InstanceNorm keeps the math exact). Same
-        # semantics as UNet3D.fold_level0: "auto" = measured-winner fold on
-        # TPU for batch-1 programs, "off"/None disables, explicit tuple
-        # forces.
+        # semantics as UNet3D.fold_level0: "auto" folds batch-1 programs
+        # where layers.FOLD_BACKENDS allows it, "off"/None disables,
+        # explicit tuple forces.
     fold_formulation: str = "dense"
 
-    def _block(self, f, name, fold=None, form="dense", **kw):
-        return ConvBlock(f, instance_normalization=True,
-                         activation="leaky_relu", dtype=self.dtype,
-                         use_pallas=self.use_pallas,
-                         use_pallas_dec0=self.use_pallas_dec0,
-                         fold_factors=fold, fold_formulation=form,
-                         name=name, **kw)
+    def _block(self, scope, f, name, fold=None, form="dense", **kw):
+        block = ConvBlock(f, instance_normalization=True,
+                          activation="leaky_relu", dtype=self.dtype,
+                          fold_factors=fold, fold_formulation=form, **kw)
+        return lambda x: block(scope.child(name), x)
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, *, train: bool = False,
-                 logits: bool = False) -> jnp.ndarray:
+    def forward(self, scope: Scope, x: jnp.ndarray, *, train: bool = False,
+                logits: bool = False) -> jnp.ndarray:
         """x: (B, D, H, W, C) → (B, D, H, W, n_labels)."""
         if self.n_segmentation_levels > self.depth - 1:
             raise ValueError(
@@ -66,9 +65,9 @@ class Isensee2017(nn.Module):
                 f"depth >= n_segmentation_levels+1 (got depth={self.depth}); "
                 f"deep-supervision heads sit on decoder levels, of which "
                 f"there are depth-1")
-        from fetal_mri_segmentation_tpu.models import layers as _layers
         from fetal_mri_segmentation_tpu.ops.fold import (
-            concat_folded, fold, unfold, upsample_nearest_folded)
+            concat_folded, conv1_folded, fold, unfold,
+            upsample_nearest_folded)
 
         # shared gate logic (batch-1 / backend / divisibility) lives in
         # layers.resolve_fold; depth>=2 is the only isensee-specific gate
@@ -92,15 +91,16 @@ class Isensee2017(nn.Module):
             # (ops/fold.py::conv3_folded_stride2)
             entry_fold = ff if (level == 0 or (level == 1 and ff is not None)
                                 ) else None
-            in_conv = self._block(f, f"enc{level}_in", strides=strides,
-                                  fold=entry_fold, form=form)(x)
-            h = self._block(f, f"enc{level}_ctx1",
+            in_conv = self._block(scope, f, f"enc{level}_in",
+                                  strides=strides, fold=entry_fold,
+                                  form=form)(x)
+            h = self._block(scope, f, f"enc{level}_ctx1",
                             fold=ff if folded else None, form=form)(in_conv)
             if train and self.dropout_rate > 0:
-                rng = self.make_rng("dropout")
+                rng = scope.make_rng("dropout")
                 h = spatial_dropout_3d(rng, h, self.dropout_rate,
                                        group=F if folded else 1)
-            h = self._block(f, f"enc{level}_ctx2",
+            h = self._block(scope, f, f"enc{level}_ctx2",
                             fold=ff if folded else None, form=form)(h)
             x = in_conv + h
             level_outputs.append(x)  # level 0's output stays folded
@@ -112,46 +112,39 @@ class Isensee2017(nn.Module):
             fold_here = ff if folded else None
             # up-sampling module (UpSampling3D + conv block; the fused form
             # computes the conv at the coarse resolution — exact math).
-            # Measured dispatch (round-4 attribution, v5e, B=1 64^3): fused
-            # wins the forward (7.63 vs 7.82 ms whole model) but its
-            # lhs-dilated backward loses (fwd+bwd 43.4 vs 41.7 ms; train
-            # step 44.6 vs 42.4 — the -5% step win), so training uses the
-            # upsample-then-conv form. Both branches create the identical
-            # dec{level}_up/conv/{kernel,bias} param tree, so checkpoints
-            # and the Keras interop are form-agnostic.
+            # Training uses the upsample-then-conv form, whose backward
+            # avoids the lhs-dilated conv gradient. Both branches read the
+            # identical dec{level}_up/conv/{kernel,bias} param tree, so
+            # checkpoints and the Keras interop are form-agnostic.
             if self.fuse_decoder and not train:
-                x = self._block(f, f"dec{level}_up", fold=fold_here,
+                x = self._block(scope, f, f"dec{level}_up", fold=fold_here,
                                 form=form)((x, None))
             else:
                 x = (upsample_nearest_folded(x, ff) if folded
                      else upsample_nearest(x, (2, 2, 2)))
-                x = self._block(f, f"dec{level}_up", fold=fold_here,
+                x = self._block(scope, f, f"dec{level}_up", fold=fold_here,
                                 form=form)(x)
             x = (concat_folded(level_outputs[level], x, ff) if folded
                  else jnp.concatenate([level_outputs[level], x], axis=-1))
             # localization module
-            x = self._block(f, f"dec{level}_loc1", fold=fold_here,
+            x = self._block(scope, f, f"dec{level}_loc1", fold=fold_here,
                             form=form)(x)
-            x = self._block(f, f"dec{level}_loc2", kernel_size=(1, 1, 1),
-                            fold=fold_here, form=form)(x)
+            x = self._block(scope, f, f"dec{level}_loc2",
+                            kernel_size=(1, 1, 1), fold=fold_here,
+                            form=form)(x)
             if level < self.n_segmentation_levels:
+                head = scope.child(f"seg{level}")
                 if folded:
-                    # per-sub-voxel 1^3 seg head (same nn.Conv param tree;
+                    # per-sub-voxel 1^3 seg head (same param tree;
                     # ops/fold.py::conv1_folded)
-                    from fetal_mri_segmentation_tpu.models.layers import (
-                        HeadParams)
-                    from fetal_mri_segmentation_tpu.ops.fold import (
-                        conv1_folded)
-                    kernel, bias = HeadParams(self.n_labels,
-                                              name=f"seg{level}")(
-                        x.shape[-1] // F)
+                    kernel, bias = conv_params(head, (1, 1, 1),
+                                               x.shape[-1] // F,
+                                               self.n_labels)
                     seg = conv1_folded(x.astype(jnp.float32), kernel,
                                        bias, ff)
                 else:
-                    seg = nn.Conv(self.n_labels, (1, 1, 1),
-                                  dtype=jnp.float32,
-                                  param_dtype=jnp.float32,
-                                  name=f"seg{level}")(x.astype(jnp.float32))
+                    seg = conv(head, x.astype(jnp.float32), self.n_labels,
+                               (1, 1, 1))
                 segmentation_layers.insert(0, seg)
 
         out = None

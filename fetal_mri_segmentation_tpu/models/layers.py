@@ -1,15 +1,19 @@
 """Shared building blocks for the 3D U-Net family.
 
-TPU-first design notes (not a Keras translation):
+Design notes (not a Keras translation):
 
-- Internal layout is NDHWC (channels-last). XLA's TPU convolution emitter
-  tiles the channel dimension onto the 128-wide MXU lanes; channels-last keeps
-  C contiguous in lane dimension and avoids per-conv relayouts. The public
-  API stays channels-first like the reference (Keras channels_first; see
-  models/wrappers) — the transpose happens once at the jit boundary and is
-  fused by XLA.
+- Internal layout is NDHWC (channels-last), which is what XLA's GPU
+  convolution emitters and cuDNN take without a relayout. The public API
+  stays channels-first like the reference (Keras channels_first; see
+  models/__init__.py) — the transpose happens once at the jit boundary and
+  is fused by XLA.
 - Params are fp32; compute dtype is configurable (bf16 default) — norm
   statistics and the loss accumulate in fp32.
+- Blocks are frozen dataclasses called as ``block(scope, x, train=...)``;
+  their parameters live at ``scope`` (models/module.py) under the names
+  the checkpoint layout has always used (``conv/{kernel,bias}``,
+  ``in/{scale,bias}``, ``bn/{scale,bias}`` + ``batch_stats`` ``bn/{mean,
+  var}``, ``deconv/{kernel,bias}``).
 - InstanceNorm is stateless math (per-sample, per-channel moments over
   D,H,W) — the reference needed keras-contrib for it
   (reference: unet3d/model/unet.py::create_convolution_block,
@@ -18,139 +22,176 @@ TPU-first design notes (not a Keras translation):
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from fetal_mri_segmentation_tpu.models.module import (
+    Scope, lecun_normal, ones, zeros)
 
 Dtype = Any
+_DN = ("NDHWC", "DHWIO", "NDHWC")
 
 
-class InstanceNorm(nn.Module):
-    """Per-sample, per-channel normalization over the spatial axes (D, H, W).
+def conv_params(scope: Scope, kernel_size: Tuple[int, int, int],
+                in_features: int, features: int):
+    """``{"kernel": (k..., Cin, Cout), "bias": (Cout,)}`` at ``scope``."""
+    kernel = scope.param("kernel", tuple(kernel_size) + (in_features,
+                                                         features),
+                         lecun_normal)
+    bias = scope.param("bias", (features,), zeros)
+    return kernel, bias
+
+
+def conv(scope: Scope, x: jnp.ndarray, features: int,
+         kernel_size: Tuple[int, int, int] = (3, 3, 3),
+         strides: Tuple[int, int, int] = (1, 1, 1),
+         dtype: Dtype = jnp.float32) -> jnp.ndarray:
+    """Conv3D, SAME padding, input/kernel/bias cast to ``dtype``."""
+    kernel, bias = conv_params(scope, kernel_size, x.shape[-1], features)
+    y = jax.lax.conv_general_dilated(
+        x.astype(dtype), kernel.astype(dtype), tuple(strides), "SAME",
+        dimension_numbers=_DN)
+    return y + bias.astype(dtype)
+
+
+def instance_norm(scope: Scope, x: jnp.ndarray, *, group: int = 1,
+                  epsilon: float = 1e-3,
+                  dtype: Dtype = jnp.float32) -> jnp.ndarray:
+    """Per-sample, per-channel normalization over the spatial axes.
 
     Matches keras-contrib InstanceNormalization(axis=channel) semantics:
     learned scale/offset per channel, eps inside the sqrt.
+
+    ``group > 1``: x is space-to-depth folded (B, d, h, w, F*C) in
+    sub-voxel-major layout (ops/fold.py). Moments per ORIGINAL channel over
+    (d, h, w, sub-voxel) are exactly the unfolded (D, H, W) moments (the
+    fold is a permutation of the same voxels), and the (C,) params are the
+    plain ones, so checkpoints interchange with the unfolded path.
     """
-    epsilon: float = 1e-3  # keras-contrib default
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        c = x.shape[-1]
-        gamma = self.param("scale", nn.initializers.ones, (c,), jnp.float32)
-        beta = self.param("bias", nn.initializers.zeros, (c,), jnp.float32)
-        xf = x.astype(jnp.float32)
-        mean = jnp.mean(xf, axis=(1, 2, 3), keepdims=True)
-        var = jnp.var(xf, axis=(1, 2, 3), keepdims=True)
-        y = (xf - mean) * jax.lax.rsqrt(var + self.epsilon)
-        y = y * gamma + beta
-        return y.astype(self.dtype)
+    b, d, h, w, fc = x.shape
+    c = fc // group
+    gamma = scope.param("scale", (c,), ones)
+    beta = scope.param("bias", (c,), zeros)
+    xf = x.astype(jnp.float32).reshape(b, d, h, w, group, c)
+    mean = jnp.mean(xf, axis=(1, 2, 3, 4), keepdims=True)
+    var = jnp.var(xf, axis=(1, 2, 3, 4), keepdims=True)
+    y = (xf - mean) * jax.lax.rsqrt(var + epsilon)
+    y = y * gamma + beta
+    return y.reshape(b, d, h, w, fc).astype(dtype)
 
 
-class FoldedInstanceNorm(nn.Module):
-    """InstanceNorm on a space-to-depth-folded tensor — exact.
+def batch_norm(scope: Scope, x: jnp.ndarray, *, train: bool,
+               momentum: float = 0.99, epsilon: float = 1e-3,
+               axis_name: Optional[str] = None) -> jnp.ndarray:
+    """BatchNorm over (B, D, H, W) in float32 (Keras momentum/epsilon).
 
-    Input (B, d, h, w, F*C) in sub-voxel-major folded layout: per-sample,
-    per-ORIGINAL-channel moments over (d, h, w, sub-voxel) are exactly the
-    unfolded (D, H, W) moments (the fold is a permutation of the same
-    voxels). Params identical to :class:`InstanceNorm` ((C,) scale/bias
-    under the same names), so checkpoints interchange with the plain path.
+    Training uses the batch moments (all-reduced over ``axis_name`` under
+    data parallelism: sync-BN) and records the updated running moments;
+    inference uses the running moments.
     """
-    group: int  # F = prod(fold factors)
-    epsilon: float = 1e-3
-    dtype: Dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        b, d, h, w, fc = x.shape
-        c = fc // self.group
-        gamma = self.param("scale", nn.initializers.ones, (c,), jnp.float32)
-        beta = self.param("bias", nn.initializers.zeros, (c,), jnp.float32)
-        xf = x.astype(jnp.float32).reshape(b, d, h, w, self.group, c)
-        mean = jnp.mean(xf, axis=(1, 2, 3, 4), keepdims=True)
-        var = jnp.var(xf, axis=(1, 2, 3, 4), keepdims=True)
-        y = (xf - mean) * jax.lax.rsqrt(var + self.epsilon)
-        y = y * gamma + beta
-        return y.reshape(b, d, h, w, fc).astype(self.dtype)
-
-
-class _ConvParams(nn.Module):
-    """Parameter-only holder mirroring nn.Conv's {"kernel","bias"} layout."""
-    features: int
-
-    @nn.compact
-    def __call__(self, in_features: int):
-        kernel = self.param("kernel", nn.initializers.lecun_normal(),
-                            (3, 3, 3, in_features, self.features), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        return kernel, bias
+    c = x.shape[-1]
+    scale = scope.param("scale", (c,), ones)
+    bias = scope.param("bias", (c,), zeros)
+    ra_mean = scope.batch_stat("mean", (c,), zeros)
+    ra_var = scope.batch_stat("var", (c,), ones)
+    xf = x.astype(jnp.float32)
+    if train:
+        axes = (0, 1, 2, 3)
+        mean, mean2 = jnp.mean(xf, axes), jnp.mean(jnp.square(xf), axes)
+        if axis_name is not None:
+            mean, mean2 = jax.lax.pmean(jnp.stack([mean, mean2]), axis_name)
+        var = jnp.maximum(0.0, mean2 - jnp.square(mean))
+        if not scope.initializing:
+            scope.set_batch_stat("mean", momentum * ra_mean
+                                 + (1.0 - momentum) * mean)
+            scope.set_batch_stat("var", momentum * ra_var
+                                 + (1.0 - momentum) * var)
+    else:
+        mean, var = ra_mean, ra_var
+    y = (xf - mean) * (jax.lax.rsqrt(var + epsilon) * scale)
+    return y + bias
 
 
-class HeadParams(nn.Module):
-    """nn.Conv(features, (1,1,1))-shaped params without the conv op.
-
-    Used by the folded head (models/unet3d.py): the 1^3 conv in folded
-    space is a per-sub-voxel matmul against the SAME (1,1,1,C,n) kernel,
-    so the op is custom but the checkpoint layout must stay nn.Conv's.
-    """
-    features: int
-
-    @nn.compact
-    def __call__(self, in_features: int):
-        kernel = self.param("kernel", nn.initializers.lecun_normal(),
-                            (1, 1, 1, in_features, self.features),
-                            jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        return kernel, bias
+def activate(x: jnp.ndarray, name: str, negative_slope: float = 0.3
+             ) -> jnp.ndarray:
+    if name == "relu":
+        return jax.nn.relu(x)
+    if name == "leaky_relu":
+        return jax.nn.leaky_relu(x, negative_slope)
+    return x
 
 
-def _dilated_backend_ok() -> bool:
-    """Gate for the input-dilated decoder dispatch: XLA:CPU lowers
-    lhs-dilated convs poorly (measured 2.7× slower DP step on the virtual
-    mesh), so only TPU uses the dilated form. Module-level so tests can
-    monkeypatch it and exercise the dispatch condition off-TPU."""
-    return jax.default_backend() == "tpu"
+# Backends on which the input-dilated decoder form beats the 8-parity form,
+# and on which batch-1 programs fold level 0 into channels; a backend not
+# listed takes the plain form. Both are set from whole-model timings
+# (docs/PERF.md, "H100 bring-up"): on the H100 the dilated form loses at
+# every shape (its gradient runs as a slow lhs-dilated conv) and folding
+# wins nothing, so both are empty. Module-level so tests can monkeypatch
+# them.
+DILATED_BACKENDS: frozenset = frozenset()
+FOLD_BACKENDS: frozenset = frozenset()
 
-
-# trace-time override of the fused-decoder formulation ("parity" |
-# "dilated" | None = backend/batch heuristic). The heuristic reads the
-# TRACING host's backend, which is wrong for cross-platform exports: a
-# TPU-host `jax.export` targeting CPU consumers would bake the lhs-dilated
-# form the CPU gate exists to avoid (utils/export.py forces "parity" for
-# portable artifacts instead — exact same math, see up_concat_conv3x3).
-_DECODER_FORM_OVERRIDE: Optional[str] = None
-
-
-# trace-time override of space-to-depth folding. "off" forces the plain
-# path even where a config requested folding — utils/export.py pins it for
-# portable artifacts the same way it pins the decoder form (the folded
-# dense conv is a TPU win but a mild CPU loss, and "auto" reads the
-# TRACING host's backend).
-_FOLD_OVERRIDE: Optional[str] = None
-
-# measured winner of the round-5 space-to-depth probe on v5e
-# (docs/PERF.md round-5 addendum 18): fold W into channels, dense-embedded
-# kernel — whole-model fwd -7%, fwd+bwd -24% on the flagship unet.
+# the fold "auto" applies where FOLD_BACKENDS allows it: fold W into
+# channels, dense-embedded kernel (ops/fold.py)
 FOLD_AUTO = ((1, 1, 2), "dense")
 
+# jax.export names GPU targets by runtime; the gates are keyed by backend
+_EXPORT_PLATFORM_BACKEND = {"cuda": "gpu", "rocm": "gpu"}
 
-def _fold_backend_ok() -> bool:
-    """Auto-folding applies on TPU only: the dense folded conv trades 2x
-    dense FLOPs for full MXU lanes — a measured win on v5e, a measured
-    loss on XLA:CPU (tools/probe_fold.py). Module-level so tests can
-    monkeypatch it and exercise the auto path off-TPU.
+# platforms a trace is for (None: the tracing host's backend) — see
+# trace_for_platforms
+_TRACE_PLATFORMS: Optional[Tuple[str, ...]] = None
 
-    ``FETAL_TPU_FOLD=off`` in the environment disables auto-folding
-    process-wide (A/B measurement + ops escape hatch; explicit config
-    tuples still fold)."""
-    import os
-    if os.environ.get("FETAL_TPU_FOLD", "").lower() == "off":
+
+def _gate(backends: frozenset, platform: Optional[str]) -> bool:
+    if platform is None and _TRACE_PLATFORMS is not None:
+        return all(_gate(backends, p) for p in _TRACE_PLATFORMS)
+    platform = platform or jax.default_backend()
+    return _EXPORT_PLATFORM_BACKEND.get(platform, platform) in backends
+
+
+def _dilated_backend_ok(platform: Optional[str] = None) -> bool:
+    """Whether the input-dilated decoder form is the measured winner on
+    ``platform`` (default: the platforms being traced for)."""
+    return _gate(DILATED_BACKENDS, platform)
+
+
+def _fold_backend_ok(platform: Optional[str] = None) -> bool:
+    """Whether "auto" space-to-depth folding is a measured win for batch-1
+    programs on ``platform`` (default: the platforms being traced for)."""
+    return _gate(FOLD_BACKENDS, platform)
+
+
+class trace_for_platforms:
+    """Context manager: trace formulation choices for ``platforms``.
+
+    The gates read the TRACING host's backend, but a `jax.export` artifact
+    runs on its target platforms. Inside this context a gate opens only
+    when it is open on every target, so an artifact never carries a
+    formulation that one of its targets lowers poorly (the choices are
+    exact-math twins, so only speed is at stake).
+
+    with trace_for_platforms(["cuda", "cpu"]):
+        exported = jax.export(...)
+    """
+
+    def __init__(self, platforms):
+        self._platforms = tuple(platforms)
+        self._prev: Optional[Tuple[str, ...]] = None
+
+    def __enter__(self):
+        global _TRACE_PLATFORMS
+        self._prev = _TRACE_PLATFORMS
+        _TRACE_PLATFORMS = self._platforms
+        return self
+
+    def __exit__(self, *exc):
+        global _TRACE_PLATFORMS
+        _TRACE_PLATFORMS = self._prev
         return False
-    return jax.default_backend() == "tpu"
 
 
 def resolve_fold(fold_level0, formulation: str, x,
@@ -159,10 +200,9 @@ def resolve_fold(fold_level0, formulation: str, x,
 
     Single source for the auto gates shared by UNet3D and Isensee2017
     (models pass their family-specific conditions via ``extra_gates``):
-    "auto" folds only for batch-1 programs on a TPU backend with evenly
-    divisible folded axes (the measured win bracket — docs/PERF.md
-    addenda 18–18d); None/"off" disable; an explicit tuple passes
-    through. ``fold_override("off")`` pins everything off.
+    "auto" folds only for batch-1 programs on a backend in
+    ``FOLD_BACKENDS`` with evenly divisible folded axes; None/"off"
+    disable; an explicit tuple passes through.
 
     Returns ``(factors_or_None, formulation)``.
     """
@@ -174,62 +214,11 @@ def resolve_fold(fold_level0, formulation: str, x,
         if not (extra_gates and x.shape[0] == 1 and _fold_backend_ok()
                 and all(s % f == 0 for s, f in zip(x.shape[1:4], ff))):
             ff = None
-    if _FOLD_OVERRIDE == "off":
-        ff = None
     return ff, form
 
 
-class fold_override:
-    """Context manager pinning space-to-depth folding during a trace.
-
-    with fold_override("off"):   # plain convs everywhere (portable export)
-        exported = jax.export(...)
-    """
-
-    def __init__(self, mode: Optional[str]):
-        if mode not in (None, "off"):
-            raise ValueError(f"unknown fold override {mode!r}")
-        self._mode = mode
-        self._prev: Optional[str] = None
-
-    def __enter__(self):
-        global _FOLD_OVERRIDE
-        self._prev = _FOLD_OVERRIDE
-        _FOLD_OVERRIDE = self._mode
-        return self
-
-    def __exit__(self, *exc):
-        global _FOLD_OVERRIDE
-        _FOLD_OVERRIDE = self._prev
-        return False
-
-
-class decoder_form_override:
-    """Context manager pinning the fused-decoder formulation during a trace.
-
-    with decoder_form_override("parity"):   # runs everywhere
-        exported = jax.export(...)
-    """
-
-    def __init__(self, form: Optional[str]):
-        if form not in (None, "parity", "dilated"):
-            raise ValueError(f"unknown decoder form {form!r}")
-        self._form = form
-        self._prev: Optional[str] = None
-
-    def __enter__(self):
-        global _DECODER_FORM_OVERRIDE
-        self._prev = _DECODER_FORM_OVERRIDE
-        _DECODER_FORM_OVERRIDE = self._form
-        return self
-
-    def __exit__(self, *exc):
-        global _DECODER_FORM_OVERRIDE
-        _DECODER_FORM_OVERRIDE = self._prev
-        return False
-
-
-class ConvBlock(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvBlock:
     """Conv3D(same) → optional BatchNorm/InstanceNorm → activation.
 
     Reference: unet3d/model/unet.py::create_convolution_block
@@ -245,9 +234,6 @@ class ConvBlock(nn.Module):
     negative_slope: float = 0.3  # Keras LeakyReLU default alpha (the
                                  # reference Isensee blocks use LeakyReLU())
     dtype: Dtype = jnp.bfloat16
-    use_pallas: bool = False  # fused implicit-GEMM conv (ops/pallas_conv.py)
-    use_pallas_dec0: bool = False  # single-program decoder level
-                                   # (ops/pallas_dec0.py)
     bn_axis_name: Optional[str] = None  # sync-BN: all-reduce the batch
                                         # moments over this mesh axis (DP)
     fold_factors: Optional[Tuple[int, int, int]] = None  # space-to-depth:
@@ -256,10 +242,10 @@ class ConvBlock(nn.Module):
         # Cout) kernel), so checkpoints/Keras import are unaffected.
     fold_formulation: str = "parity"
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False) -> jnp.ndarray:
+    def __call__(self, scope: Scope, x, *, train: bool = False
+                 ) -> jnp.ndarray:
         if self.fold_factors is not None:
-            return self._folded_path(x, train=train)
+            return self._folded_path(scope, x, train=train)
         if isinstance(x, (tuple, list)):
             # fused upsample(+concat)+conv input: (x_deep, skip-or-None).
             # Same param tree as the plain path (one (3,3,3, Cin, f) kernel
@@ -267,54 +253,25 @@ class ConvBlock(nn.Module):
             x_deep, skip = x
             cin = x_deep.shape[-1] + (skip.shape[-1] if skip is not None
                                       else 0)
-            kernel, bias = _ConvParams(self.features, name="conv")(cin)
-            if skip is not None and self.use_pallas_dec0:
-                from fetal_mri_segmentation_tpu.ops.pallas_dec0 import (
-                    dec0_available, up_concat_conv3x3_pallas)
-                if dec0_available(x_deep.shape, x_deep.shape[-1],
-                                  skip.shape[-1], self.features,
-                                  jnp.dtype(self.dtype).itemsize,
-                                  skip_shape=skip.shape):
-                    act_fused = not (self.batch_normalization
-                                     or self.instance_normalization)
-                    y = up_concat_conv3x3_pallas(
-                        x_deep.astype(self.dtype), skip.astype(self.dtype),
-                        kernel.astype(self.dtype), bias.astype(jnp.float32),
-                        self.activation if act_fused else "none",
-                        self.negative_slope)
-                    return self._epilogue(y.astype(self.dtype), train=train,
-                                          skip_activation=act_fused)
+            kernel, bias = conv_params(scope.child("conv"), (3, 3, 3), cin,
+                                       self.features)
             # Two exact-math formulations of the same op (same params, same
-            # result up to fp reassociation); measured on v5e (docs/PERF.md
-            # round-3 addendum): the input-dilated single conv wins whenever
-            # the MXU has batch to chew on or a backward pass follows
-            # (B=27 fwd −6.9%, B=1/8 fwd+bwd −2..3%); the 8-parity decomposed
-            # form only wins the B=1 forward-only case (direct/serving path).
-            # TPU only: XLA:CPU lowers lhs-dilated convs poorly (measured
-            # 2.7× slower DP step on the virtual mesh), so other backends
-            # keep the parity form everywhere.
-            if _DECODER_FORM_OVERRIDE == "parity":
-                impl = up_concat_conv3x3
-            elif _DECODER_FORM_OVERRIDE == "dilated":
-                impl = up_concat_conv3x3_dilated
-            else:
-                impl = (up_concat_conv3x3_dilated
-                        if (train or x_deep.shape[0] > 1)
-                        and _dilated_backend_ok()
-                        else up_concat_conv3x3)
+            # result up to fp reassociation): the input-dilated single conv
+            # where DILATED_BACKENDS says it wins (batched or training
+            # programs), else the 8-parity decomposed form.
+            impl = (up_concat_conv3x3_dilated
+                    if (train or x_deep.shape[0] > 1) and _dilated_backend_ok()
+                    else up_concat_conv3x3)
             y = impl(
                 x_deep.astype(self.dtype),
                 None if skip is None else skip.astype(self.dtype),
                 kernel.astype(self.dtype), bias.astype(jnp.float32))
-            return self._epilogue(y.astype(self.dtype), train=train)
-        if self._pallas_eligible(x):
-            return self._pallas_path(x, train=train)
-        x = nn.Conv(self.features, self.kernel_size, strides=self.strides,
-                    padding="SAME", dtype=self.dtype,
-                    param_dtype=jnp.float32, name="conv")(x)
-        return self._epilogue(x, train=train)
+            return self._epilogue(scope, y.astype(self.dtype), train=train)
+        y = conv(scope.child("conv"), x, self.features, self.kernel_size,
+                 self.strides, self.dtype)
+        return self._epilogue(scope, y, train=train)
 
-    def _folded_path(self, x, *, train) -> jnp.ndarray:
+    def _folded_path(self, scope: Scope, x, *, train) -> jnp.ndarray:
         """Space-to-depth variants of the conv-block ops (ops/fold.py).
 
         Exact reformulations on folded activations; the parameters stay in
@@ -334,6 +291,7 @@ class ConvBlock(nn.Module):
             up_conv3_folded)
         ff = self.fold_factors
         F = ff[0] * ff[1] * ff[2]
+        cscope = scope.child("conv")
         if isinstance(x, (tuple, list)):
             # fused upsample(+concat)+conv: x_deep at cell resolution
             # (unfolded channels), skip in folded layout
@@ -343,8 +301,8 @@ class ConvBlock(nn.Module):
             x_deep, skip = x
             skip_c = 0 if skip is None else skip.shape[-1] // F
             up_ch = x_deep.shape[-1]
-            kernel, bias = _ConvParams(self.features, name="conv")(
-                up_ch + skip_c)
+            kernel, bias = conv_params(cscope, (3, 3, 3), up_ch + skip_c,
+                                       self.features)
             y = up_conv3_folded(x_deep.astype(self.dtype),
                                 kernel[:, :, :, :up_ch, :].astype(self.dtype),
                                 ff)
@@ -354,88 +312,40 @@ class ConvBlock(nn.Module):
                                      formulation=self.fold_formulation)
             y = y + jnp.tile(bias, F).astype(y.dtype)
         elif self.kernel_size == (1, 1, 1) and self.strides == (1, 1, 1):
-            kernel, bias = HeadParams(self.features, name="conv")(
-                x.shape[-1] // F)
+            kernel, bias = conv_params(cscope, (1, 1, 1), x.shape[-1] // F,
+                                       self.features)
             y = conv1_folded(x.astype(self.dtype), kernel, bias, ff)
         elif self.kernel_size == (3, 3, 3) and self.strides == (1, 1, 1):
-            kernel, bias = _ConvParams(self.features, name="conv")(
-                x.shape[-1] // F)
+            kernel, bias = conv_params(cscope, (3, 3, 3), x.shape[-1] // F,
+                                       self.features)
             y = conv3_folded(x.astype(self.dtype), kernel, bias, ff,
                              formulation=self.fold_formulation)
         elif self.kernel_size == (3, 3, 3) and self.strides == (2, 2, 2):
-            kernel, bias = _ConvParams(self.features, name="conv")(
-                x.shape[-1] // F)
+            kernel, bias = conv_params(cscope, (3, 3, 3), x.shape[-1] // F,
+                                       self.features)
             # output is UNFOLDED (the stride lands on the cell grid) —
             # norm/activation below see plain channels, which is exactly
             # what the next (unfolded) level expects
             y = conv3_folded_stride2(x.astype(self.dtype), kernel, bias, ff)
-            return self._epilogue(y.astype(self.dtype), train=train)
+            return self._epilogue(scope, y.astype(self.dtype), train=train)
         else:
             raise ValueError(
                 f"fold_factors supports 3x3x3 stride-1/2 and 1x1x1 blocks, "
                 f"got kernel {self.kernel_size} strides {self.strides}")
         y = y.astype(self.dtype)
         if self.instance_normalization:
-            y = FoldedInstanceNorm(F, dtype=self.dtype, name="in")(y)
-            return self._apply_activation(y)
-        return self._epilogue(y, train=train)
+            y = instance_norm(scope.child("in"), y, group=F, dtype=self.dtype)
+            return activate(y, self.activation, self.negative_slope)
+        return self._epilogue(scope, y, train=train)
 
-    def _apply_activation(self, x):
-        if self.activation == "relu":
-            return nn.relu(x)
-        if self.activation == "leaky_relu":
-            return nn.leaky_relu(x, negative_slope=self.negative_slope)
-        return x
-
-    def _epilogue(self, x, *, train, skip_activation: bool = False):
+    def _epilogue(self, scope: Scope, x, *, train):
         """Optional norm + activation after the conv (any conv path)."""
         if self.batch_normalization:
-            x = nn.BatchNorm(use_running_average=not train, axis=-1,
-                             momentum=0.99, epsilon=1e-3, dtype=jnp.float32,
-                             axis_name=self.bn_axis_name,
-                             name="bn")(x).astype(self.dtype)
+            x = batch_norm(scope.child("bn"), x, train=train,
+                           axis_name=self.bn_axis_name).astype(self.dtype)
         elif self.instance_normalization:
-            x = InstanceNorm(dtype=self.dtype, name="in")(x)
-        if skip_activation:
-            return x
-        return self._apply_activation(x)
-
-    def _pallas_eligible(self, x) -> bool:
-        return self._pallas_op(x) is not None
-
-    def _pallas_op(self, x) -> Optional[Callable]:
-        """Pick the fused kernel for this conv's shape: the halo-slab kernel
-        when C is 128-aligned (no layout conversion), else the flat-plane
-        kernel (any C >= 8). None -> plain XLA path."""
-        if not self.use_pallas:
-            return None
-        if self.kernel_size != (3, 3, 3) or self.strides != (1, 1, 1):
-            return None
-        from fetal_mri_segmentation_tpu.ops.pallas_conv import (
-            conv3x3, pallas_conv3x3_available)
-        from fetal_mri_segmentation_tpu.ops.pallas_conv_flat import (
-            conv3x3_flat, pallas_conv_flat_available)
-
-        if pallas_conv3x3_available(x.shape, x.shape[-1], self.features):
-            return conv3x3
-        if pallas_conv_flat_available(x.shape, x.shape[-1], self.features,
-                                      jnp.dtype(self.dtype).itemsize):
-            return conv3x3_flat
-        return None
-
-    def _pallas_path(self, x, *, train):
-        """Fused conv+bias(+activation) through the Pallas implicit-GEMM
-        kernel; param tree identical to the nn.Conv path
-        ({"conv": {"kernel", "bias"}}) so checkpoints are interchangeable."""
-        conv_op = self._pallas_op(x)
-        kernel, bias = _ConvParams(self.features, name="conv")(x.shape[-1])
-        act_fused = not (self.batch_normalization
-                         or self.instance_normalization)
-        y = conv_op(x.astype(self.dtype), kernel.astype(self.dtype),
-                    bias.astype(jnp.float32),
-                    self.activation if act_fused else "none",
-                    self.negative_slope)
-        return self._epilogue(y, train=train, skip_activation=act_fused)
+            x = instance_norm(scope.child("in"), x, dtype=self.dtype)
+        return activate(x, self.activation, self.negative_slope)
 
 
 def up_concat_conv3x3(x_deep: jnp.ndarray, skip: jnp.ndarray,
@@ -516,13 +426,11 @@ def up_concat_conv3x3_dilated(x_deep: jnp.ndarray, skip: jnp.ndarray,
     the upsample is absorbed into a 4³ kernel over the ×2-dilated input.
     Identical math and FLOPs (the dilated input's zeros are skipped by
     XLA's lowering, which performs the same parity split internally), but
-    a 2-op graph instead of the 9-op slice/stack/transpose graph, so XLA
-    schedules it better whenever the MXU is busy: measured −6.9% model
-    forward at B=27 and −2..3% fwd+bwd at B=1/8 on v5e; the decomposed
-    form retains a small edge only for B=1 forward-only (docs/PERF.md
-    round-3 addendum). Param layout identical (concat order
-    ``[upsampled, skip]``): checkpoints, Keras import, and the Pallas
-    dec0 kernel all interoperate unchanged.
+    a 2-op graph instead of the 9-op slice/stack/transpose graph. Which
+    form is faster depends on the backend's conv lowering (``DILATED_
+    BACKENDS``; docs/PERF.md). Param layout identical (concat order
+    ``[upsampled, skip]``): checkpoints and Keras import interoperate
+    unchanged.
     """
     up_ch = x_deep.shape[-1]
     M = jnp.asarray(_DILATE_M, jnp.float32)
@@ -540,27 +448,24 @@ def up_concat_conv3x3_dilated(x_deep: jnp.ndarray, skip: jnp.ndarray,
     return y + bias.astype(y.dtype)
 
 
-class UpConv(nn.Module):
+def up_conv(scope: Scope, x: jnp.ndarray, *, deconvolution: bool = False,
+            size: Tuple[int, int, int] = (2, 2, 2),
+            dtype: Dtype = jnp.bfloat16) -> jnp.ndarray:
     """Upsampling: transposed conv (kernel=stride=2) or nearest-neighbor repeat.
 
     Reference: unet3d/model/unet.py::get_up_convolution — Conv3DTranspose(2^3,
     strides 2) when ``deconvolution`` else UpSampling3D(2). With kernel==stride
     the transposed conv has no overlap, so Keras/XLA padding conventions agree
-    exactly (output = 2x input).
+    exactly (output = 2x input). Params at ``scope.child("deconv")``, kernel
+    ``(2, 2, 2, C, C)``.
     """
-    features: int
-    deconvolution: bool = False
-    size: Tuple[int, int, int] = (2, 2, 2)
-    dtype: Dtype = jnp.bfloat16
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
-        if self.deconvolution:
-            return nn.ConvTranspose(self.features, kernel_size=self.size,
-                                    strides=self.size, padding="VALID",
-                                    dtype=self.dtype, param_dtype=jnp.float32,
-                                    name="deconv")(x)
-        return upsample_nearest(x, self.size)
+    if not deconvolution:
+        return upsample_nearest(x, size)
+    c = x.shape[-1]
+    kernel, bias = conv_params(scope.child("deconv"), size, c, c)
+    y = jax.lax.conv_transpose(x.astype(dtype), kernel.astype(dtype),
+                               tuple(size), "VALID", dimension_numbers=_DN)
+    return y + bias.astype(dtype)
 
 
 def upsample_nearest(x: jnp.ndarray, size: Tuple[int, int, int]) -> jnp.ndarray:
@@ -574,7 +479,9 @@ def upsample_nearest(x: jnp.ndarray, size: Tuple[int, int, int]) -> jnp.ndarray:
 def max_pool_3d(x: jnp.ndarray, window: Tuple[int, int, int] = (2, 2, 2)
                 ) -> jnp.ndarray:
     """MaxPooling3D, stride == window (reference: MaxPooling3D(pool_size))."""
-    return nn.max_pool(x, window_shape=window, strides=window)
+    dims = (1,) + tuple(window) + (1,)
+    return jax.lax.reduce_window(x, -jnp.inf, jax.lax.max, dims, dims,
+                                 "VALID")
 
 
 def spatial_dropout_3d(rng: jax.Array, x: jnp.ndarray, rate: float,

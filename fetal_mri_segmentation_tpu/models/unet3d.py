@@ -11,21 +11,25 @@ unet_model_3d, create_convolution_block, get_up_convolution):
   two ConvBlocks with the skip's channel count.
 - Head: Conv3D(n_labels, 1x1x1) → sigmoid (or softmax).
 
-TPU-native deltas: NDHWC layout, bf16 compute / fp32 params, fp32 head.
+Deltas from the reference: NDHWC layout, bf16 compute / fp32 params, fp32
+head.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import dataclasses
+from typing import Any, Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
 
+from fetal_mri_segmentation_tpu.models import layers as _layers
 from fetal_mri_segmentation_tpu.models.layers import (
-    ConvBlock, HeadParams, UpConv, head_activation, max_pool_3d)
+    ConvBlock, conv, conv_params, head_activation, max_pool_3d, up_conv)
+from fetal_mri_segmentation_tpu.models.module import Model, Scope
 
 
-class UNet3D(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class UNet3D(Model):
     """Reference: unet3d/model/unet.py::unet_model_3d (defaults mirrored)."""
     n_labels: int = 1
     depth: int = 4
@@ -36,39 +40,31 @@ class UNet3D(nn.Module):
     instance_normalization: bool = False
     activation_name: str = "sigmoid"
     dtype: Any = jnp.bfloat16
-    use_pallas: bool = False
-    use_pallas_dec0: bool = False  # one-program decoder level (ops/pallas_dec0.py)
     bn_axis_name: Any = None  # sync-BN mesh axis under data parallelism
     fuse_decoder: bool = True  # collapse upsample+concat+conv (exact math,
                                # 27->8 taps on the up half; docs/PERF.md)
     fold_level0: Any = "auto"  # space-to-depth at the full-resolution
-        # level: fold per-axis factors into channels so the thin enc0/dec0
-        # convs fill the MXU lanes (ops/fold.py; exact math, reference
-        # param tree). "auto" (default): the measured-winner fold
-        # (layers.FOLD_AUTO) on TPU when the gates pass (norm-free, fused
-        # decoder, depth>=2, even folded axes), plain otherwise. None/"off"
-        # disables; an explicit (f1,f2,f3) tuple forces it (raising when a
-        # gate fails).
+        # level: fold per-axis factors into channels (ops/fold.py; exact
+        # math, reference param tree). "auto" (default): layers.FOLD_AUTO
+        # where layers.FOLD_BACKENDS allows it and the gates pass
+        # (norm-free, fused decoder, depth>=2, even folded axes, batch 1),
+        # plain otherwise. None/"off" disables; an explicit (f1,f2,f3)
+        # tuple forces it (raising when a gate fails).
     fold_formulation: str = "dense"
 
-    def _conv_block(self, f, name, fold=None, form="dense"):
+    def _conv_block(self, f, fold=None, form="dense"):
         """fold: RESOLVED fold factors (a tuple) or None — "auto" has
-        already been resolved by __call__."""
+        already been resolved by forward."""
         return ConvBlock(f, batch_normalization=self.batch_normalization,
                          instance_normalization=self.instance_normalization,
-                         dtype=self.dtype, use_pallas=self.use_pallas,
-                         use_pallas_dec0=self.use_pallas_dec0,
-                         bn_axis_name=self.bn_axis_name,
-                         fold_factors=fold, fold_formulation=form,
-                         name=name)
+                         dtype=self.dtype, bn_axis_name=self.bn_axis_name,
+                         fold_factors=fold, fold_formulation=form)
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray, *, train: bool = False,
-                 logits: bool = False) -> jnp.ndarray:
+    def forward(self, scope: Scope, x: jnp.ndarray, *, train: bool = False,
+                logits: bool = False) -> jnp.ndarray:
         """x: (B, D, H, W, C) → (B, D, H, W, n_labels)."""
-        from fetal_mri_segmentation_tpu.models import layers as _layers
         from fetal_mri_segmentation_tpu.ops.fold import (
-            fold, pool_folded, unfold)
+            conv1_folded, fold, pool_folded, unfold)
 
         fuse = (self.fuse_decoder and not self.deconvolution
                 and self.pool_size == (2, 2, 2))
@@ -88,10 +84,10 @@ class UNet3D(nn.Module):
         for level in range(self.depth):
             f = self.n_base_filters * (2 ** level)
             folded = ff if level == 0 else None
-            x = self._conv_block(f, f"enc{level}_conv1", fold=folded,
-                                 form=form)(x, train=train)
-            x = self._conv_block(f * 2, f"enc{level}_conv2", fold=folded,
-                                 form=form)(x, train=train)
+            x = self._conv_block(f, fold=folded, form=form)(
+                scope.child(f"enc{level}_conv1"), x, train=train)
+            x = self._conv_block(f * 2, fold=folded, form=form)(
+                scope.child(f"enc{level}_conv2"), x, train=train)
             if level < self.depth - 1:
                 skips.append(x)  # level 0's skip stays folded
                 x = (pool_folded(x, ff) if folded
@@ -106,25 +102,26 @@ class UNet3D(nn.Module):
                 # upsample_nearest + concat + conv collapsed into one op
                 # (identical math and param tree; see
                 # layers.up_concat_conv3x3 / ops.fold.up_conv3_folded)
-                x = self._conv_block(f, f"dec{level}_conv1", fold=folded,
-                                     form=form)((x, skip), train=train)
+                x = self._conv_block(f, fold=folded, form=form)(
+                    scope.child(f"dec{level}_conv1"), (x, skip), train=train)
             else:
-                x = UpConv(x.shape[-1], deconvolution=self.deconvolution,
-                           size=self.pool_size, dtype=self.dtype,
-                           name=f"dec{level}_up")(x)
+                x = up_conv(scope.child(f"dec{level}_up"), x,
+                            deconvolution=self.deconvolution,
+                            size=self.pool_size, dtype=self.dtype)
                 x = jnp.concatenate([x, skip], axis=-1)
-                x = self._conv_block(f, f"dec{level}_conv1")(x, train=train)
-            x = self._conv_block(f, f"dec{level}_conv2", fold=folded,
-                                 form=form)(x, train=train)
+                x = self._conv_block(f)(scope.child(f"dec{level}_conv1"), x,
+                                        train=train)
+            x = self._conv_block(f, fold=folded, form=form)(
+                scope.child(f"dec{level}_conv2"), x, train=train)
 
+        head = scope.child("head")
         if ff is not None:
             # folded 1^3 head: per-sub-voxel matmul against the SAME
             # (1,1,1,C,n) kernel (ops/fold.py::conv1_folded), activation
             # per sub-voxel, then unfold
-            from fetal_mri_segmentation_tpu.ops.fold import conv1_folded
             F = ff[0] * ff[1] * ff[2]
-            kernel, bias = HeadParams(self.n_labels, name="head")(
-                x.shape[-1] // F)
+            kernel, bias = conv_params(head, (1, 1, 1), x.shape[-1] // F,
+                                       self.n_labels)
             y = conv1_folded(x.astype(jnp.float32), kernel, bias, ff)
             if not logits:
                 b, d, h, w, _ = y.shape
@@ -133,8 +130,7 @@ class UNet3D(nn.Module):
                     self.activation_name).reshape(b, d, h, w, -1)
             return unfold(y, ff)
 
-        x = nn.Conv(self.n_labels, (1, 1, 1), dtype=jnp.float32,
-                    param_dtype=jnp.float32, name="head")(x.astype(jnp.float32))
+        x = conv(head, x.astype(jnp.float32), self.n_labels, (1, 1, 1))
         if logits:
             return x
         return head_activation(x, self.activation_name)

@@ -13,7 +13,7 @@ weighted_dice_coefficient_loss, label_wise_dice_coefficient):
 
 All functions are pure ``jnp`` and usable under jit/grad/vmap. Reductions are
 accumulated in float32 regardless of the compute dtype so that bf16 model
-outputs still produce accurate Dice numbers on TPU.
+outputs still produce accurate Dice numbers.
 
 Tensor layout: channels-first ``(B, C, D, H, W)`` like the reference
 (Keras ``image_data_format="channels_first"``); the functions only assume the

@@ -2,13 +2,11 @@
 
 The full-resolution levels of the reference architectures run 3^3 convs
 with 1–64 channels (reference: unet3d/model/unet.py::unet_model_3d level-0
-blocks; isensee2017.py entry/context modules per SURVEY §2 rows 7–8). On
-the TPU those channel counts underfill the 128-wide MXU lanes: measured
-16.7 TFLOP/s for 32→64 @64³ vs 54.3 TFLOP/s for 384→128 @32³ (docs/PERF.md
-"Where the device time goes") — SURVEY §7 hard-part #1.
+blocks; isensee2017.py entry/context modules per SURVEY §2 rows 7–8). Thin
+channel counts underfill a matrix unit that wants wide operands — SURVEY
+§7 hard-part #1.
 
-The classic TPU remedy is algebraic: fold 2× spatial blocks into the
-channel dimension (space-to-depth) so the same math runs with 2–8× the
+The algebraic remedy: fold 2× spatial blocks into the channel dimension (space-to-depth) so the same math runs with 2–8× the
 channels on a 2–8× smaller grid. This module implements that folding
 EXACTLY — same multiply-accumulates, reassociated — for the ops the
 level-0 blocks need:
@@ -37,9 +35,9 @@ a fully-folded axis set F = prod(factors)):
   embedded at their cell offsets (zeros elsewhere). 2^n_folded× dense
   FLOPs — only plausible for 1 folded axis.
 
-Which (if any) wins on the v5e is an empirical question — see
-docs/PERF.md round-5 addendum (tools/probe_fold.py) for the measurements
-and the integration decision.
+Which (if any) wins is an empirical question per backend — see
+docs/PERF.md ("H100 bring-up"; tools/bench_forms.py) for the measurements
+and models/layers.py FOLD_BACKENDS for the integration decision.
 
 Conventions: NDHWC layout; fold order is sub-voxel-major
 (folded channel = ((b1*f2 + b2)*f3 + b3)*C + c), and parity outputs are

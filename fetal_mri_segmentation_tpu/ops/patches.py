@@ -27,7 +27,7 @@ import numpy as np
 
 
 def _native_enabled() -> bool:
-    return os.environ.get("FETAL_TPU_NO_NATIVE", "0") != "1"
+    return os.environ.get("FETAL_NO_NATIVE", "0") != "1"
 
 
 def compute_patch_indices(image_shape: Sequence[int],
@@ -93,7 +93,7 @@ def get_patch_from_3d_data(data: np.ndarray, patch_shape: Sequence[int],
     Hot path: contiguous float32 (C, D, H, W) volumes go through the native
     memcpy kernel (native/fastloader.cpp::extract_patch_f32) when the library
     is built; anything else uses the numpy path below (same semantics, tested
-    equal). Set FETAL_TPU_NO_NATIVE=1 to force numpy.
+    equal). Set FETAL_NO_NATIVE=1 to force numpy.
     """
     if (_native_enabled() and isinstance(data, np.ndarray)
             and data.dtype == np.float32 and data.ndim in (3, 4)

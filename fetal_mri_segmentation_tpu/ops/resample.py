@@ -1,13 +1,12 @@
-"""Device-side ingest resampling: crop on host, zoom + normalize on TPU.
+"""Device-side ingest resampling: crop on host, zoom + normalize on device.
 
 Reference behavior: unet3d/utils/utils.py::resize → scipy.ndimage.zoom
 (order 1 for images, order 0 for label maps, ``grid_mode=True``,
 ``mode="nearest"``) followed by normalize.py z-scoring — both host-side in
 the reference (and in utils/geometry.py's host twin here). At 128³ the
-order-1 zoom alone costs ~110 ms of single-core host time per modality
-(docs/PERF.md round-3 addendum 8), which caps serving throughput: the
-serve pipeline overlaps host preprocessing with device compute, so the
-HOST path is the bottleneck stage.
+order-1 zoom is a large single-core host cost per modality, which caps
+serving throughput: the serve pipeline overlaps host preprocessing with
+device compute, so the HOST path can become the bottleneck stage.
 
 This module moves zoom + normalization onto the device:
 
@@ -16,8 +15,8 @@ This module moves zoom + normalization onto the device:
 - one jitted program per (bucket, out_shape, mode) — the true pre-pad
   extents enter as DYNAMIC scalars, so arbitrary scan geometries reuse a
   handful of compiled executables instead of recompiling per case (XLA
-  needs static shapes; bucketing + dynamic extents is the TPU-native way
-  to handle variable-size ingest);
+  needs static shapes; bucketing + dynamic extents is the XLA way to
+  handle variable-size ingest);
 - the zoom is three separable 1-D linear gathers (order-1 exact —
   clamped-edge lerp reproduces scipy's ``grid_mode=True`` +
   ``mode="nearest"`` coordinate convention ``src = (i+0.5)·(n_in/n_out)
@@ -126,8 +125,8 @@ class DevicePreprocessor:
         self.image_shape = tuple(int(s) for s in image_shape)
         self.normalization = normalization
         # bfloat16 halves the raw-volume H2D bytes at ~0.4% relative
-        # intensity error BEFORE normalization — worthwhile on thin
-        # (tunneled/remote) device links where the upload dominates;
+        # intensity error BEFORE normalization — worthwhile on thin host
+        # links where the upload dominates;
         # float32 keeps fp-level parity with the host path.
         self._transfer_dtype = transfer_dtype
         if normalization == "global":

@@ -1,16 +1,16 @@
-"""Data-parallel training over a 1-D device mesh (ICI all-reduce).
+"""Data-parallel training over a 1-D device mesh (gradient all-reduce).
 
 The reference has NO parallelism — one Python process, one device
 (SURVEY.md section 2 parallelism rows). This module is the net-new
-TPU-native counterpart required by BASELINE config #5:
+counterpart required by BASELINE config #5:
 
 - ``Mesh(devices, ("data",))`` — batch sharded over the mesh, params and
   optimizer state replicated;
 - the jitted train step runs under ``jax.shard_map``; gradients (and
-  BatchNorm stats) are ``pmean``-reduced over the ``data`` axis — XLA lowers
-  this to an ICI all-reduce on TPU pods (and to DCN collectives across
-  slices; `jax.distributed.initialize()` extends the same code path
-  multi-host). No hand-written transport, per the scaling-book recipe:
+  BatchNorm stats) are ``pmean``-reduced over the ``data`` axis — XLA hands
+  the all-reduce to NCCL, over NVLink between the GPUs of one host
+  (`jax.distributed.initialize()` extends the same code path multi-host).
+  No hand-written transport, per the scaling-book recipe:
   annotate shardings, let XLA insert collectives.
 - the SAME step function serves 1..N devices; N=1 compiles the collective
   away.

@@ -1,14 +1,15 @@
 """Multi-host initialization + sharded inference over the patch grid.
 
 Reference: ABSENT (single process, single device — SURVEY.md section 5.8).
-TPU-native equivalents:
+Equivalents here:
 
 - ``initialize_distributed()``: thin wrapper over
-  ``jax.distributed.initialize`` — on TPU pods the coordinator/process info
-  comes from the environment, so this is a no-arg call per host; afterwards
-  ``jax.devices()`` spans the slice and the SAME Mesh/shard_map code paths
-  (parallel/data_parallel.py) run multi-host, with XLA routing the gradient
-  all-reduce over ICI within a slice and DCN across slices.
+  ``jax.distributed.initialize`` — each process passes the coordinator
+  address (``host:port``), the process count and its own id; afterwards
+  ``jax.devices()`` spans every process's GPUs and the SAME Mesh/shard_map
+  code paths (parallel/data_parallel.py) run multi-host, with XLA handing
+  the gradient all-reduce to NCCL (NVLink within a host, the network
+  between hosts).
 - ``predict_volume_sharded``: sliding-window inference with the PATCH GRID
   sharded over the mesh — embarrassingly parallel (each device predicts a
   contiguous chunk of patch batches and overlap-adds into its own
@@ -31,7 +32,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Initialize multi-host JAX (no-op on a single process).
 
-    On Cloud TPU pods all arguments are discovered from the environment.
+    Pass all three arguments: nothing on a plain GPU host tells JAX of a
+    cluster.
     """
     if num_processes is not None and num_processes <= 1:
         return

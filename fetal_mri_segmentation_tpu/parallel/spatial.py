@@ -1,8 +1,9 @@
 """Spatial sharding (the sequence-parallel analogue for 3D CNNs) via GSPMD.
 
 Reference: ABSENT — the reference is single-device; SURVEY.md section 5.7
-names spatial sharding of whole-volume convs (halo exchange over ICI) as the
-TPU-native analogue of sequence/context parallelism for this workload.
+names spatial sharding of whole-volume convs (halo exchange between
+devices; NCCL over NVLink on a GPU host) as the analogue of
+sequence/context parallelism for this workload.
 
 Unlike `parallel/data_parallel.py` (shard_map = per-shard code), this module
 uses the GLOBAL-VIEW path: ``jax.jit`` with `NamedSharding` annotations on a
@@ -14,7 +15,7 @@ mesh, annotate shardings, let XLA insert collectives.
 
 Two axes compose:
 - ``data``   — batch dimension (classic DP; gradients all-reduced),
-- ``spatial``— the volume depth axis (activations sharded; memory per chip
+- ``spatial``— the volume depth axis (activations sharded; memory per device
                for whole-volume training drops by the spatial factor).
 
 The SAME jitted step serves any mesh shape, including 1x1 (collectives
@@ -171,13 +172,10 @@ class SpatialPredictor(ResidentParamsMixin):
         # in BATCHED chunks: the permutes/flips themselves are STATIC (free
         # data-movement ops XLA fuses; a vmapped lax.switch would compute
         # all 48 branches per member), only the forward is scanned over
-        # chunks of `tta_chunk` members. Measured at 128^3 on v5e
-        # (docs/PERF.md addendum 16): permute 2.73 -> 1.75 s/volume at
-        # chunk=8 (chunks >= 12 crash the server-side TPU compiler —
-        # recorded bound); flips 0.66 -> 0.44 s at chunk=2 (flips has only
-        # 8 members, so big chunks trade batch efficiency for HBM pressure
-        # with nothing to amortize: chunk=8 measured 0.65). Defaults follow
-        # those measurements per mode.
+        # chunks of `tta_chunk` members. The per-mode defaults (permute 8,
+        # flips 2: flips has only 8 members, so big chunks trade batch
+        # efficiency for device memory with little to amortize) have not
+        # been re-swept on the GPU (ROADMAP A8).
         if tta_chunk is None:
             tta_chunk = 8 if self.tta_mode == "permute" else 2
         if tta_chunk < 1 or 48 % tta_chunk:
@@ -417,8 +415,9 @@ def make_direct_predictor(model, config, tta=False,
                           ) -> SpatialPredictor:
     """Single-device DIRECT whole-volume predictor (beyond-parity serving
     mode): the fully-convolutional net runs once over the whole volume —
-    no patch grid, no overlap recompute, no seams. ~2x less device time
-    than the tiled sliding-window on 128^3 (57 vs 115 ms, docs/PERF.md). Requires volume dims
+    no patch grid, no overlap recompute, no seams (about half the
+    convolution work of the 27-patch sliding window on 128^3). Requires
+    volume dims
     divisible by 2^(depth-1); numerics near former patch borders differ
     from the Gaussian overlap-add average (tested close on trained models).
 

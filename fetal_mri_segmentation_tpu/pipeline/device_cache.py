@@ -32,7 +32,7 @@ Bit-parity with the host staging path (training/loop.py::_compress):
 
 Reference: the reference has no analogue — its generator re-read and
 re-sliced every patch on host (SURVEY.md section 3.1 hot loop); this is
-the TPU-native replacement the survey's build plan step 5 points at.
+the device-side replacement the survey's build plan step 5 points at.
 """
 
 from __future__ import annotations
@@ -597,42 +597,45 @@ def partial_index_batch_generator(data_file, index_list, row_of,
 # The auto decision
 # ---------------------------------------------------------------------------
 
-#: fallback HBM budget when the device does not report memory stats
-#: (v5e has 16 GB; the model, optimizer and step working set need the rest).
+#: budget for backends that report no memory stats (the CPU backend):
+#: host RAM stands in for device memory there, so keep it modest.
 AUTO_BUDGET_BYTES = 4 << 30
 
-#: fraction of the device's reported FREE HBM the cache may claim — the
+#: fraction of the device's reported free memory the cache may claim — the
 #: remainder absorbs fragmentation and estimate error.
 HBM_SAFETY_FRACTION = 0.8
 
-#: bytes reserved out of free HBM for the train-step working set
-#: (activations, gradients, XLA scratch) — none of which exists yet at
-#: cache-build time, so "free" HBM measured here systematically
-#: overstates what the cache may take. Without the reserve an 11 GiB
-#: dataset on a 16 GiB chip goes fully resident and the FIRST train step
-#: OOMs (the upload-failure fallback only guards the cache upload, not
-#: the later step). 3 GiB covers the measured B=8 depth-3/32 step with
-#: headroom; module-level so tests (and unusual models) can patch it.
-HBM_STEP_RESERVE_BYTES = 3 << 30
+#: share of the device's memory limit (``bytes_limit`` — on a GPU the pool
+#: JAX preallocated, 75% of the card by default) reserved for the
+#: train-step working set (activations, gradients, XLA scratch), none of
+#: which exists yet at cache-build time, so "free" memory measured here
+#: overstates what the cache may take. Without a reserve a dataset that
+#: fills the free memory goes fully resident and the FIRST train step runs
+#: out of memory (the upload-failure fallback only guards the cache
+#: upload, not the later step). A quarter of the pool covers the measured
+#: peak of the flagship B=6 64^3 depth-4 step with room to spare
+#: (docs/PERF.md, "H100 bring-up"); module-level so tests (and unusual
+#: models) can patch it.
+HBM_STEP_RESERVE_FRACTION = 0.25
 
 
 def hbm_budget_bytes(device=None, safety: float = HBM_SAFETY_FRACTION,
                      fallback: Optional[int] = None,
                      reserve: Optional[int] = None) -> int:
-    """Cache budget from the device's ACTUAL free HBM.
+    """Cache budget from the device's ACTUAL free memory.
 
     ``safety * (bytes_limit - bytes_in_use) - reserve`` via
-    ``device.memory_stats()``; backends that report nothing (CPU, some
-    plugins) get the static ``fallback`` (module-level AUTO_BUDGET_BYTES
-    when None, read at call time so tests can patch it — the fallback is
-    already conservative, no reserve is subtracted from it).
+    ``device.memory_stats()``, where ``reserve`` defaults to
+    ``HBM_STEP_RESERVE_FRACTION * bytes_limit``; backends that report
+    nothing (CPU) get the static ``fallback`` (module-level
+    AUTO_BUDGET_BYTES when None, read at call time so tests can patch it —
+    the fallback is already conservative, no reserve is subtracted from
+    it).
     """
     import jax
 
     if fallback is None:
         fallback = AUTO_BUDGET_BYTES
-    if reserve is None:
-        reserve = HBM_STEP_RESERVE_BYTES
     try:
         device = device or jax.local_devices()[0]
         stats = device.memory_stats()
@@ -640,6 +643,8 @@ def hbm_budget_bytes(device=None, safety: float = HBM_SAFETY_FRACTION,
         in_use = int(stats.get("bytes_in_use", 0))
     except (RuntimeError, KeyError, TypeError, AttributeError, IndexError):
         return fallback
+    if reserve is None:
+        reserve = int(HBM_STEP_RESERVE_FRACTION * limit)
     return max(0, int(safety * (limit - in_use)) - int(reserve))
 
 
@@ -674,7 +679,7 @@ def maybe_build_device_cache(data_file, config, *, mesh=None, seed=0,
     (CheckpointIO.peek_data_order) when this call is a resume with
     nonzero skip_batches. Because partial-mode batch GROUPING depends on
     which cases were resident — and the auto decision otherwise reads
-    LIVE free HBM, which can differ between the crashed run and the
+    LIVE free device memory, which can differ between the crashed run and the
     resume — the recorded mode is pinned: ``{"mode": "lockstep"}``
     suppresses partial (full cache or host staging share the host batch
     boundaries, either preserves the order); ``{"mode": "partial",
@@ -704,7 +709,7 @@ def maybe_build_device_cache(data_file, config, *, mesh=None, seed=0,
             f"resident case set), but {why} — resuming differently would "
             "silently replay a different batch sequence than the "
             "interrupted run consumed. Reproduce the original environment "
-            "(free HBM / same config), or delete the 'data_order' field "
+            "(free device memory / same config), or delete the 'data_order' field "
             "from the checkpoint's .meta.json to accept an inexact resume.")
 
     if knob == "off":

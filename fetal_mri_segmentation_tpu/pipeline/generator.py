@@ -5,7 +5,7 @@ data_generator, add_data, get_data_from_file, convert_data,
 get_multi_class_labels, get_number_of_steps, get_validation_split,
 create_patch_index_list.
 
-TPU-first redesign (SURVEY.md section 2, training-generator row):
+Accelerator-first redesign (SURVEY.md section 2, training-generator row):
 
 - The host does only cheap work: HDF5 case reads (LRU-cached in RAM — the
   reference re-read the whole case from disk for EVERY patch), numpy patch

@@ -1,4 +1,4 @@
-"""Background prefetch: overlap host batch assembly + H2D transfer with TPU compute.
+"""Background prefetch: overlap host batch assembly + H2D transfer with device compute.
 
 The reference's generator ran synchronously inside fit_generator — every step
 waited for a full host read+augment cycle (SURVEY.md section 3.1 hot loop).

@@ -1,24 +1,29 @@
-"""Checkpoint / resume via orbax.
+"""Checkpoint / resume: the flattened train state as one ``.npz``.
 
 Reference semantics to reproduce (reference: unet3d/training.py::get_callbacks
 ModelCheckpoint(model_file, save_best_only=True) + load_old_model; train.py
 auto-resumes when the model file exists and not overwrite):
 
-- one logical "model file" (here: a directory) holding the BEST-val-loss
-  state only;
+- one logical "model file" (here: a directory holding ``state.npz``) with
+  the BEST-val-loss state only;
 - restoring returns everything needed to continue training exactly: params,
   optimizer state (Adam moments + current learning rate), BatchNorm stats,
   step/epoch counters, best-val bookkeeping.
+
+Each leaf is stored under its tree path (``jax.tree_util.keystr``), so a
+restore is a lookup by path into the template state's tree; the file is
+written to a temporary name and renamed into place, so a crash mid-save
+leaves the previous checkpoint intact.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-import orbax.checkpoint as ocp
 
 from fetal_mri_segmentation_tpu.training.state import TrainState
 
@@ -30,17 +35,53 @@ from fetal_mri_segmentation_tpu.training.state import TrainState
 # restored, so the 8 bytes of wait counters must be too)
 _SCHED_KEYS = ("plateau_best", "plateau_wait", "early_best", "early_wait")
 
+STATE_FILE = "state.npz"
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    return {jax.tree_util.keystr(path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def save_tree_npz(tree, path: str) -> None:
+    """Write ``tree``'s leaves to ``path`` keyed by tree path, atomically."""
+    flat = {k: np.asarray(jax.device_get(v)) for k, v in _flatten(tree).items()}
+    tmp = f"{path}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def restore_tree_npz(stored, template):
+    """Rebuild ``template``'s tree from ``stored`` (an opened ``.npz``),
+    each leaf checked against the template's shape and cast to its dtype."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(template)
+    out = []
+    for path, ref in leaves:
+        key = jax.tree_util.keystr(path)
+        if key not in stored.files:
+            raise KeyError(f"checkpoint has no entry {key}")
+        value = stored[key]
+        if tuple(value.shape) != tuple(np.shape(ref)):
+            raise ValueError(f"checkpoint entry {key} has shape "
+                             f"{value.shape}, expected {np.shape(ref)}")
+        # host templates (numpy) stay on the host; the state goes to device
+        out.append(np.asarray(value, ref.dtype) if isinstance(ref, np.ndarray)
+                   else jnp.asarray(value, ref.dtype))
+    return jax.tree_util.tree_unflatten(treedef, out)
+
 
 class CheckpointIO:
     """Best-only checkpointing into `model_file` (a directory)."""
 
     def __init__(self, model_file: str):
         self.path = os.path.abspath(model_file)
-        self._ckptr = ocp.StandardCheckpointer()
+        self.file = os.path.join(self.path, STATE_FILE)
 
     def exists(self) -> bool:
-        return os.path.isdir(self.path) and os.path.exists(
-            os.path.join(self.path, "_CHECKPOINT_METADATA"))
+        return os.path.isfile(self.file)
 
     def peek_epoch(self) -> Optional[int]:
         """The checkpoint's resume epoch WITHOUT a full restore (sidecar
@@ -93,19 +134,18 @@ class CheckpointIO:
         sched = sched or {"plateau_best": best_val, "plateau_wait": 0,
                           "early_best": best_val, "early_wait": 0}
         payload = {
-            "params": jax.device_get(state.params),
-            "opt_state": jax.device_get(state.opt_state),
-            "batch_stats": jax.device_get(state.batch_stats),
+            "params": state.params,
+            "opt_state": state.opt_state,
+            "batch_stats": state.batch_stats,
             "step": np.asarray(state.step),
             "epoch": np.asarray(epoch),
             "best_val": np.asarray(best_val, np.float64),
             "sched": {k: np.asarray(float(sched.get(k, 0.0)), np.float64)
                       for k in _SCHED_KEYS},
         }
-        self._ckptr.save(self.path, payload, force=True)
-        self._ckptr.wait_until_finished()
-        # tiny sidecar BESIDE the orbax dir (force=True replaces the dir
-        # itself): lets train.py peek the resume epoch BEFORE building the
+        os.makedirs(self.path, exist_ok=True)
+        save_tree_npz(payload, self.file)
+        # tiny sidecar BESIDE the checkpoint dir: lets train.py peek the resume epoch BEFORE building the
         # generators, so their per-epoch rng streams can fast-forward and a
         # resumed run sees the exact batch sequence an uninterrupted run
         # would (data-order exact resume). Written atomically.
@@ -120,61 +160,25 @@ class CheckpointIO:
 
         ``state`` may be a concrete `create_train_state` result OR the
         compile-free `create_abstract_state` template (ShapeDtypeStruct
-        leaves) — orbax restores concrete arrays either way. Returns
-        ``(state, epoch, best_val, sched)``; ``sched`` is ``{}`` for
-        checkpoints written before scheduler state was persisted.
+        leaves). Returns ``(state, epoch, best_val, sched)``; ``sched`` is
+        ``{}`` for checkpoints written before scheduler state was persisted.
         """
-        def host(x):
-            return x if isinstance(x, jax.ShapeDtypeStruct) else \
-                jax.device_get(x)
-
-        tmap = jax.tree_util.tree_map
         template = {
-            "params": tmap(host, state.params),
-            "opt_state": tmap(host, state.opt_state),
-            "batch_stats": tmap(host, state.batch_stats),
-            "step": host(state.step),
+            "params": state.params,
+            "opt_state": state.opt_state,
+            "batch_stats": state.batch_stats,
+            "step": state.step,
             "epoch": np.asarray(0),
             "best_val": np.asarray(0.0, np.float64),
-            "sched": {k: np.asarray(0.0, np.float64) for k in _SCHED_KEYS},
         }
-        # probe the checkpoint's metadata for the "sched" subtree instead of
-        # restore-and-retry: a blanket retry would swallow real failures
-        # (shape mismatch, corrupt checkpoint, even Ctrl-C) into a second
-        # multi-second restore that then fails with a misleading error
-        has_sched: Optional[bool] = None
-        try:
-            meta = self._ckptr.metadata(self.path)
-            tree = getattr(meta, "item_metadata", meta)
-            has_sched = "sched" in tree
-        except Exception:
-            pass  # metadata probing is best-effort; decide below
-        if has_sched is None:
-            # probe inconclusive (orbax version without metadata support,
-            # storage error): attempt the current layout, then the legacy
-            # (pre-sched) layout. If BOTH fail the failure was never about
-            # the sched subtree — re-raise the ORIGINAL error so shape
-            # mismatches/corruption surface undistorted. (Matching on the
-            # exception TEXT instead would couple this to orbax's error
-            # formatting, which changes across versions.)
-            try:
-                restored = self._ckptr.restore(self.path, template)
-                has_sched = True
-            except Exception as e:
-                legacy = {k: v for k, v in template.items() if k != "sched"}
-                try:
-                    restored = self._ckptr.restore(self.path, legacy)
-                except Exception:
-                    raise e
-                has_sched = False
-        else:
-            if not has_sched:
-                # legacy checkpoint (no "sched" subtree): restore without
-                # it; the caller rebuilds schedulers from best_val as before
-                del template["sched"]
-            restored = self._ckptr.restore(self.path, template)
-        sched = ({k: float(v) for k, v in restored["sched"].items()}
-                 if has_sched else {})
+        with np.load(self.file) as stored:
+            restored = restore_tree_npz(stored, template)
+            sched_keys = {k: f"['sched']['{k}']" for k in _SCHED_KEYS}
+            # legacy checkpoints (no "sched" subtree): the caller rebuilds
+            # schedulers from best_val
+            sched = ({k: float(stored[key]) for k, key in sched_keys.items()}
+                     if all(key in stored.files
+                            for key in sched_keys.values()) else {})
         new_state = state.replace(params=restored["params"],
                                   opt_state=restored["opt_state"],
                                   batch_stats=restored["batch_stats"],

@@ -113,7 +113,7 @@ def train_model(model, state: TrainState, config,
         if verbose:
             print(f"[resume] epoch {start_epoch}, best val {best_val:.4f}")
         # the .meta.json sidecar is what callers peeked to fast-forward
-        # the generators (train.py); if it disagrees with the orbax
+        # the generators (train.py); if it disagrees with the checkpoint
         # payload (kill between the two writes, or a checkpoint dir
         # copied without its sidecar) the streams are misaligned — data
         # order then differs from an uninterrupted run. Training remains

@@ -3,7 +3,8 @@
 The reference's equivalent is the compiled Keras model object holding weights
 and Adam slots (reference: unet3d/model/unet.py model.compile(Adam, ...),
 training.py::load_old_model restoring arch+weights+optimizer from .h5).
-Here state is an explicit pytree — jit/pjit-friendly and orbax-serializable.
+Here state is an explicit pytree — jit-friendly and saved leaf by leaf
+(training/checkpoint.py).
 
 The learning rate lives INSIDE the optimizer state via
 ``optax.inject_hyperparams`` so the epoch-level schedules of the reference
@@ -14,21 +15,26 @@ with no recompilation.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
-from flax.core import FrozenDict
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jnp.ndarray
     params: Any
     opt_state: Any
     batch_stats: Any  # {} when the model has no BatchNorm
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    tx: optax.GradientTransformation = dataclasses.field(
+        metadata=dict(static=True))
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads):
         updates, new_opt_state = self.tx.update(grads, self.opt_state, self.params)
@@ -106,7 +112,7 @@ def create_abstract_state(model, config,
     STRUCTURE as a template, but `create_train_state` jit-compiles and runs
     a full `model.init` forward to produce throwaway values (~30 s for even
     a small 3D U-Net on one CPU core). `jax.eval_shape` traces the same
-    constructor abstractly; orbax restores concrete arrays straight into
+    constructor abstractly; the checkpoint restores concrete arrays into
     the abstract template (see checkpoint.py::load_old_model).
     """
     tx = tx or make_optimizer(config.initial_learning_rate)
@@ -123,7 +129,7 @@ def create_train_state(model, config, rng: jax.Array,
     x = jnp.zeros((1,) + tuple(shape) + (config.nb_channels,), jnp.float32)
     variables = model.init(rng, x)
     params = variables["params"]
-    batch_stats = variables.get("batch_stats", FrozenDict({}))
+    batch_stats = variables.get("batch_stats", {})
     tx = tx or make_optimizer(config.initial_learning_rate)
     return TrainState(step=jnp.zeros((), jnp.int32), params=params,
                       opt_state=tx.init(params), batch_stats=batch_stats,

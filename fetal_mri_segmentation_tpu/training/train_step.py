@@ -1,6 +1,6 @@
 """Jitted train / eval steps with fused on-device augmentation.
 
-This is the TPU replacement for the reference's per-batch
+This is the device-side replacement for the reference's per-batch
 ``fit_generator`` hot loop (SURVEY.md section 3.1): one compiled XLA program
 per step containing augmentation (ops/augment.py), the forward pass, the
 dice loss, the backward pass, and the Adam update — zero host round-trips
@@ -75,7 +75,7 @@ def make_train_step(model, config, *, axis_name: Optional[str] = None,
 
     With ``axis_name`` set the step is written for use inside
     shard_map/pjit: gradients (and BatchNorm stats) are psum-averaged over
-    that mesh axis before the update — the ICI all-reduce of BASELINE
+    that mesh axis before the update — the all-reduce of BASELINE
     config #5. The same function serves N=1 (axis_name=None) unchanged.
 
     ``debug_return_batch``: the step additionally returns the post-augment

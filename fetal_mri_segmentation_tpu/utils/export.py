@@ -1,12 +1,12 @@
 """Portable model export (StableHLO) for deployment without Python model code.
 
 Reference: the reference "deploys" by shipping the Keras ``.h5`` plus the
-repo (training.py::load_old_model with custom_objects). The TPU-native
+repo (training.py::load_old_model with custom_objects). The JAX
 equivalent is a **self-contained serialized program**: `jax.export` captures
 the jitted whole-volume label-map program — model graph, trained weights
 (baked as constants), sliding-window reconstruction, thresholding — as one
 StableHLO artifact that any later jax (or XLA runtime) can load and run with
-NO dependency on this package's model classes or flax.
+NO dependency on this package's model classes.
 
     # producer (has the framework + checkpoint)
     export_predictor(model, config, variables, image_shape, "model.fetal")
@@ -41,8 +41,8 @@ def export_predictor(model, config, variables, image_shape: Sequence[int],
                      direct: bool = False) -> None:
     """Serialize the whole-volume label-map program with weights baked in.
 
-    ``platforms`` defaults to ["tpu", "cpu"] so the artifact runs both where
-    it was produced AND on CPU-only consumers — a single-platform export
+    ``platforms`` defaults to ["cuda", "cpu"] so the artifact runs both on
+    the GPU AND on CPU-only consumers — a single-platform export
     would refuse to execute anywhere else (the portability this module
     exists for). ``tta`` bakes symmetry averaging into the program (mirrors
     ``predict.py --tta`` / ``--tta-mode``: True/"permute" = 48 symmetries,
@@ -83,21 +83,11 @@ def export_predictor(model, config, variables, image_shape: Sequence[int],
             return predictor._predict_labels_packed(variables, vol_cdhw,
                                                     threshold)
     spec = jax.ShapeDtypeStruct((n_ch,) + tuple(image_shape), np.float32)
-    plats = list(platforms) if platforms else ["tpu", "cpu"]
-    # Cross-platform artifacts must not bake the input-dilated decoder
-    # form: the heuristic in models/layers.py reads the TRACING host's
-    # backend, so a TPU producer would serialize lhs-dilated convs into a
-    # program the CPU consumer then runs 2.7x slower (the exact lowering
-    # the runtime gate avoids). Pin the parity form — same math, portable
-    # performance — whenever a non-TPU platform is targeted.
-    from fetal_mri_segmentation_tpu.models.layers import (
-        decoder_form_override, fold_override)
-    form = None if plats == ["tpu"] else "parity"
-    # same portability reasoning for space-to-depth folding: "auto" reads
-    # the tracing host's backend, and the dense folded conv is a measured
-    # CPU loss — force the plain convs into any non-TPU-only artifact.
-    fold_mode = None if plats == ["tpu"] else "off"
-    with decoder_form_override(form), fold_override(fold_mode):
+    plats = list(platforms) if platforms else ["cuda", "cpu"]
+    # the formulation gates (models/layers.py) answer for the targets, not
+    # for the tracing host
+    from fetal_mri_segmentation_tpu.models.layers import trace_for_platforms
+    with trace_for_platforms(plats):
         exported = jexport.export(jax.jit(program), platforms=plats)(spec)
     meta = {
         "image_shape": list(int(s) for s in image_shape),
@@ -126,14 +116,15 @@ def load_predictor(path: str):
     (unsigned integer array — uint8 unless the configured label values
     required widening to uint16/uint32 at export time).
 
-    Needs only jax — no model classes, no flax, no checkpoint files.
+    Needs only jax — no model classes, no checkpoint files.
     """
     from jax import export as jexport
 
     with open(path, "rb") as f:
         magic = f.read(len(_MAGIC))
         if magic != _MAGIC:
-            raise ValueError(f"{path}: not a fetal-tpu export artifact")
+            raise ValueError(f"{path}: not a fetal-segmentation export "
+                             "artifact")
         try:
             (meta_len,) = struct.unpack("<I", f.read(4))
             meta = json.loads(f.read(meta_len).decode())

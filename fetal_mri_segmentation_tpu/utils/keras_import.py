@@ -2,18 +2,18 @@
 
 Migration path for users of the reference: their trained model is one Keras
 ``.h5`` (reference: unet3d/training.py::load_old_model — keras load_model on
-ModelCheckpoint output). This module maps those weights onto our flax
+ModelCheckpoint output). This module maps those weights onto our
 ``UNet3D`` parameters so inference/fine-tuning continues here without
 retraining — and the mapping is verified numerically against Keras itself in
 tests/test_keras_import.py (forward-parity, including the
 Conv3DTranspose kernel-layout difference flagged in SURVEY.md section 7).
 
 Layout facts used:
-- Keras Conv3D kernel: ``(kd, kh, kw, c_in, c_out)`` — identical to flax
-  ``nn.Conv`` (NDHWC), copied as-is.
+- Keras Conv3D kernel: ``(kd, kh, kw, c_in, c_out)`` — identical to our
+  ``conv/kernel`` (NDHWC, DHWIO), copied as-is.
 - Keras Conv3DTranspose kernel: ``(kd, kh, kw, c_out, c_in)`` — transposed on
-  the last two axes relative to flax ``nn.ConvTranspose``'s
-  ``(kd, kh, kw, c_in, c_out)``.
+  the last two axes relative to our ``deconv/kernel``'s
+  ``(kd, kh, kw, c_in, c_out)`` (``lax.conv_transpose``).
 - The reference trains channels_first, but Keras stores conv kernels in the
   same (spatial..., in, out) order regardless of data_format; only the
   channel axis of inputs differs, which our channels-first wrapper already
@@ -240,7 +240,7 @@ def import_keras_unet_weights(params: dict, keras_weights: Sequence[Tuple[str, l
                               ) -> dict:
     """Map Keras conv weights (build order) onto a UNet3D params tree.
 
-    ``params``: the flax params dict (``variables["params"]``). Returns a new
+    ``params``: the params tree (``variables["params"]``). Returns a new
     tree with kernels/biases replaced. Layers without weights (pooling,
     upsampling, concat, activations) must already be absent from
     ``keras_weights``.
@@ -274,7 +274,7 @@ def import_keras_unet_weights(params: dict, keras_weights: Sequence[Tuple[str, l
         if "deconv" in sub:
             lname, weights = transpose_q.pop(0)
             # Keras Conv3DTranspose kernel (k..., out, in) realizes
-            # out[s*i+a] += in[i] * K[a, o, c]; flax ConvTranspose
+            # out[s*i+a] += in[i] * K[a, o, c]; lax.conv_transpose
             # (transpose_kernel=False) uses the mirrored taps, so map with a
             # channel swap AND a spatial flip (verified exact in
             # tests/test_keras_import.py).

@@ -1,4 +1,4 @@
-// fastloader — native host-side data-path kernels for the TPU framework.
+// fastloader — native host-side data-path kernels for the segmentation framework.
 //
 // The reference's host data path is pure Python/numpy (unet3d/generator.py +
 // unet3d/utils/patches.py); on this framework the device does the heavy work,

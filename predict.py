@@ -216,7 +216,7 @@ if __name__ == "__main__":
                          "2^(depth-1))")
     ap.add_argument("--device-preprocess", action="store_true",
                     help="with --input: run the ingest zoom + normalization "
-                         "on the TPU (host does read + crop only; "
+                         "on the device (host does read + crop only; "
                          "shape-bucketed compiles, fp-level parity with "
                          "the host path — same option as serve.py)")
     ap.add_argument("--prob-map", action="store_true",

@@ -116,7 +116,7 @@ if __name__ == "__main__":
                          "output tree; off by default to keep the hot path "
                          "to one write)")
     ap.add_argument("--device-preprocess", action="store_true",
-                    help="run the ingest zoom + normalization on the TPU "
+                    help="run the ingest zoom + normalization on the device "
                          "(host does read + crop only; shape-bucketed "
                          "compiles, fp-level parity with the host path)")
     ap.add_argument("--stats-file", default=None, metavar="PATH",

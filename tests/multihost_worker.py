@@ -1,4 +1,4 @@
-"""Subprocess worker for the two-process DCN smoke test.
+"""Subprocess worker for the two-process multi-host smoke test.
 
 Launched by tests/test_multihost.py. Runs ONE data-parallel train step over
 a 2-device global mesh — either as one of two cooperating processes
@@ -26,7 +26,7 @@ def main():
 
     if args.processes > 1:
         # the surface under test: parallel/distributed.py::
-        # initialize_distributed → jax.distributed.initialize (DCN path)
+        # initialize_distributed → jax.distributed.initialize (multi-host path)
         from fetal_mri_segmentation_tpu.parallel.distributed import (
             initialize_distributed)
         initialize_distributed(args.coordinator, args.processes, args.pid)

@@ -104,8 +104,7 @@ def write_synthetic_dataset(directory: str, n_cases: int = 4,
 
 def decoder_level_case(B=2, d=4, CU=16, CS=8, CO=8, seed=0):
     """Random (x_deep, skip, kernel, bias) for the fused decoder-level ops
-    (shared by test_dilated_decoder.py and test_pallas_dec0.py so the two
-    suites always exercise the same shape contract)."""
+    (tests/test_dilated_decoder.py)."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(seed)
@@ -116,3 +115,21 @@ def decoder_level_case(B=2, d=4, CU=16, CS=8, CO=8, seed=0):
                     jnp.float32)
     b = jnp.asarray(rng.normal(size=(CO,)), jnp.float32)
     return x, s, k, b
+
+
+def synthetic_data_file(n_cases: int = 4, shape=(24, 24, 24), seed: int = 0):
+    """An in-memory dataset (`DataFile.from_arrays`, no HDF5 file) of
+    ellipsoid cases, z-scored per volume as the builder's default does."""
+    from fetal_mri_segmentation_tpu.data import DataFile
+    from fetal_mri_segmentation_tpu.data.normalize import (
+        normalize_data_storage_per_volume)
+
+    cases = [make_ellipsoid_case(shape=shape, seed=seed + i)
+             for i in range(n_cases)]
+    data = np.stack([v for v, _ in cases])[:, None]
+    truth = np.stack([t for _, t in cases])[:, None]
+    normalize_data_storage_per_volume(data)
+    affine = np.diag([1.0, 1.0, 2.0, 1.0])
+    return DataFile.from_arrays(data, truth, np.tile(affine, (n_cases, 1, 1)),
+                                subject_ids=[f"case_{seed + i}"
+                                             for i in range(n_cases)])

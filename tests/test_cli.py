@@ -88,6 +88,21 @@ def test_config_data_dir_key_and_cli_precedence(tmp_path):
     assert (None or Config().data_dir or "data") == "data"
 
 
+@pytest.mark.parametrize("key", ["use_pallas_conv", "use_pallas_dec0"])
+def test_config_with_removed_kernel_flags_still_loads(tmp_path, key):
+    """Configs saved while the kernel flags existed load, with the
+    unknown-key warning, and the flag has no effect."""
+    import json
+
+    from fetal_mri_segmentation_tpu.config import Config
+
+    p = tmp_path / "old.json"
+    json.dump({key: True, "n_epochs": 3}, open(p, "w"))
+    with pytest.warns(UserWarning, match=key):
+        cfg = Config.load(str(p))
+    assert cfg.n_epochs == 3 and not hasattr(cfg, key)
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(model_name="vnet"), "model_name"),
     (dict(compute_dtype="fp8"), "compute_dtype"),

@@ -118,3 +118,31 @@ def test_windowed_normalization(tmp_path):
     st = FakeStorage(v[None].copy())
     normalize_data_storage_windowed(st)
     assert abs(float(st[0].std()) - 1.0) < 0.05
+
+
+def test_data_file_from_arrays_serves_the_contract():
+    """The in-memory DataFile exposes the same .root.* / len / close
+    surface the generators read, with no HDF5 file and no h5py."""
+    from fetal_mri_segmentation_tpu.data import DataFile
+
+    data = np.random.default_rng(0).normal(size=(3, 1, 8, 8, 8))
+    truth = (data > 0).astype(np.uint8)
+    df = DataFile.from_arrays(data, truth, subject_ids=["a", "b", "c"])
+    assert len(df) == 3
+    assert df.root.data.dtype == np.float32
+    np.testing.assert_array_equal(df.root.truth[1], truth[1])
+    assert df.root.affine.shape == (3, 4, 4)
+    assert list(df.root.subject_ids) == ["a", "b", "c"]
+    with pytest.raises(AttributeError):
+        df.root.missing
+    df.close()
+
+
+def test_open_data_file_without_h5py_says_so(monkeypatch, tmp_path):
+    import sys
+
+    from fetal_mri_segmentation_tpu.data import open_data_file
+
+    monkeypatch.setitem(sys.modules, "h5py", None)  # import h5py -> error
+    with pytest.raises(ImportError, match="need the h5py package"):
+        open_data_file(str(tmp_path / "x.h5"))

@@ -734,7 +734,8 @@ def test_hbm_budget_bytes(monkeypatch):
         def memory_stats(self):
             return {"bytes_limit": 16 << 30, "bytes_in_use": 6 << 30}
 
-    assert hbm_budget_bytes(FakeDev()) == int(0.8 * (10 << 30)) - (3 << 30)
+    # default reserve: a quarter of the reported limit (16 GiB -> 4 GiB)
+    assert hbm_budget_bytes(FakeDev()) == int(0.8 * (10 << 30)) - (4 << 30)
     # the step-working-set reserve is overridable (and patchable)
     assert hbm_budget_bytes(FakeDev(), reserve=0) == int(0.8 * (10 << 30))
     # a tiny device never goes negative

@@ -89,7 +89,7 @@ def test_convblock_dispatch_train_eval_agree(monkeypatch):
     """ConvBlock routes train -> dilated, eval/B=1 -> parity; both must give
     the same output for the same params (exact-math twins). The backend
     gate is forced open so the dilated branch is actually exercised on the
-    CPU test mesh (without this, both sides take the parity form off-TPU
+    CPU test mesh (without this, both sides take the parity form where the gate is closed
     and the comparison is vacuous)."""
     from fetal_mri_segmentation_tpu.models import UNet3D
     from fetal_mri_segmentation_tpu.models import layers
@@ -107,7 +107,7 @@ def test_convblock_dispatch_train_eval_agree(monkeypatch):
 
 
 def test_convblock_batched_dispatch(monkeypatch):
-    """B>1 eval routes to dilated (gate forced open off-TPU); must equal
+    """B>1 eval routes to dilated (gate forced open); must equal
     per-sample B=1 (parity) rows."""
     from fetal_mri_segmentation_tpu.models import UNet3D
     from fetal_mri_segmentation_tpu.models import layers

@@ -1,5 +1,5 @@
 """Portable StableHLO export: the artifact must reproduce the live
-predictor bit-for-bit and load with no model/flax dependency."""
+predictor bit-for-bit and load with no model-code dependency."""
 
 import jax
 import numpy as np
@@ -40,15 +40,14 @@ def test_export_rejects_bad_magic(tmp_path):
     p = str(tmp_path / "junk.fetal")
     with open(p, "wb") as f:
         f.write(b"NOTANEXPORT")
-    with pytest.raises(ValueError, match="not a fetal-tpu export"):
+    with pytest.raises(ValueError, match="not a fetal-segmentation export"):
         load_predictor(p)
 
 
 def test_export_is_multiplatform_and_corruption_safe(tmp_path):
-    """The artifact must carry (tpu, cpu) lowerings — a single-platform
+    """The artifact must carry (cuda, cpu) lowerings — a single-platform
     export refuses to run anywhere but the producer's backend, defeating
-    the module's portability purpose (verified live: exported on the TPU
-    box, executed on a CPU-only consumer). Truncation behind a valid magic
+    the module's portability purpose. Truncation behind a valid magic
     must surface as the documented ValueError."""
     import json
     import struct
@@ -72,7 +71,7 @@ def test_export_is_multiplatform_and_corruption_safe(tmp_path):
     meta = json.loads(raw[13:13 + meta_len])
     assert meta["labels"] == [1]  # effective labels, never []
     exported = jexport.deserialize(raw[13 + meta_len:])
-    assert set(exported.platforms) == {"tpu", "cpu"}
+    assert set(exported.platforms) == {"cuda", "cpu"}
 
     # truncated artifact with a valid magic -> documented ValueError
     for cut in (9, 11, 13 + meta_len // 2, 13 + meta_len + 10):
@@ -84,11 +83,11 @@ def test_export_is_multiplatform_and_corruption_safe(tmp_path):
 
 
 def test_export_pins_portable_decoder_form(tmp_path, monkeypatch):
-    """A TPU-host export targeting CPU consumers must NOT bake the
-    lhs-dilated decoder form (XLA:CPU lowers it 2.7x slower — the exact
-    lowering the runtime backend gate avoids); TPU-only exports keep the
-    batch heuristic. Simulate the TPU tracing host by monkeypatching the
-    backend gate."""
+    """An artifact bakes the input-dilated decoder form only when every
+    target platform's gate takes it: with the gate open for the GPU alone,
+    the default (cuda + cpu) export pins the parity form and a cuda-only
+    export keeps the batch heuristic's dilated form — whatever the tracing
+    host's own backend is."""
     import struct
 
     from jax import export as jexport
@@ -96,7 +95,7 @@ def test_export_pins_portable_decoder_form(tmp_path, monkeypatch):
     from fetal_mri_segmentation_tpu.models import layers as layers_mod
     from fetal_mri_segmentation_tpu.utils.export import _MAGIC
 
-    monkeypatch.setattr(layers_mod, "_dilated_backend_ok", lambda: True)
+    monkeypatch.setattr(layers_mod, "DILATED_BACKENDS", frozenset({"gpu"}))
 
     cfg = Config(model_name="unet", depth=2, n_base_filters=2,
                  patch_shape=(8, 8, 8), image_shape=(16, 16, 16),
@@ -115,16 +114,16 @@ def test_export_pins_portable_decoder_form(tmp_path, monkeypatch):
     # patch_batch_size > 1 is exactly where the heuristic picks dilated
     portable = str(tmp_path / "portable.fetal")
     export_predictor(model, cfg, variables, (16, 16, 16), portable,
-                     overlap=4, patch_batch_size=4)   # default tpu+cpu
+                     overlap=4, patch_batch_size=4)   # default cuda+cpu
     assert "lhs_dilate" not in exported_mlir(portable)
 
-    tpu_only = str(tmp_path / "tpu.fetal")
-    export_predictor(model, cfg, variables, (16, 16, 16), tpu_only,
-                     overlap=4, patch_batch_size=4, platforms=["tpu"])
-    assert "lhs_dilate" in exported_mlir(tpu_only)
+    gpu_only = str(tmp_path / "gpu.fetal")
+    export_predictor(model, cfg, variables, (16, 16, 16), gpu_only,
+                     overlap=4, patch_batch_size=4, platforms=["cuda"])
+    assert "lhs_dilate" in exported_mlir(gpu_only)
 
     # the override restored cleanly: the live CPU path still traces
-    assert layers_mod._DECODER_FORM_OVERRIDE is None
+    assert layers_mod._TRACE_PLATFORMS is None
 
 
 def test_export_direct_roundtrip_matches_live_direct_predictor(tmp_path):

@@ -180,9 +180,9 @@ def test_config_fold_wiring(rng):
 
 
 def test_unet_fold_auto_resolution(rng, monkeypatch):
-    """"auto" folds on TPU-gated configs only, falls back silently on
-    gate failures, and fold_override("off") pins it off — all without
-    changing the function value."""
+    """"auto" folds only where the backend gate is open, falls back
+    silently on gate failures, and a trace for another platform follows
+    that platform's gate — all without changing the function value."""
     from fetal_mri_segmentation_tpu.models import layers as L
     from fetal_mri_segmentation_tpu.models.unet3d import UNet3D
     import fetal_mri_segmentation_tpu.ops.fold as fold_mod
@@ -197,22 +197,22 @@ def test_unet_fold_auto_resolution(rng, monkeypatch):
     assert auto.fold_level0 == "auto"
     params = auto.init(jax.random.PRNGKey(0), x)
 
-    # off-TPU (this suite's CPU backend): auto resolves to plain
+    # gate closed on this suite's CPU backend: auto resolves to plain
     calls.clear()
     y_plain = auto.apply(params, x)
     assert not calls
 
-    # pretend-TPU: auto resolves to FOLD_AUTO; same value
-    monkeypatch.setattr(L, "_fold_backend_ok", lambda: True)
+    # gate opened for the CPU backend: auto resolves to FOLD_AUTO; same value
+    monkeypatch.setattr(L, "FOLD_BACKENDS", frozenset({"cpu"}))
     calls.clear()
     y_fold = auto.apply(params, x)
     assert calls, "auto should engage the folded path when the gate passes"
     np.testing.assert_allclose(np.asarray(y_fold), np.asarray(y_plain),
                                rtol=1e-4, atol=1e-5)
 
-    # fold_override('off') pins it off even on pretend-TPU
+    # a trace for a platform whose gate is closed does not fold
     calls.clear()
-    with L.fold_override("off"):
+    with L.trace_for_platforms(["cuda", "cpu"]):
         y_off = auto.apply(params, x)
     assert not calls
     np.testing.assert_array_equal(np.asarray(y_off), np.asarray(y_plain))
@@ -229,7 +229,7 @@ def test_unet_fold_auto_resolution(rng, monkeypatch):
 def test_dp_step_matches_single_device_with_fold():
     """Folding under shard_map data parallelism: the 8-shard DP step with
     an EXPLICIT fold (the CPU auto-gate would turn it off) matches the
-    single-device folded step — the path a TPU pod runs when the auto
+    single-device folded step — the path a multi-device run takes when the auto
     default engages inside DP training."""
     import optax
 
@@ -316,7 +316,7 @@ def test_spatial_predictor_matches_single_device_with_fold():
     """Folding composes with GSPMD depth-axis sharding: the spatially
     sharded whole-volume predictor with an EXPLICIT fold (the CPU auto
     gate would turn it off) equals the unsharded folded forward — the
-    combination a TPU pod runs when auto-fold engages inside
+    combination a multi-device run takes when auto-fold engages inside
     parallel/spatial.py's halo-exchange predictor. Fold (1,1,2) folds W
     while the mesh shards D, so the halo exchange and the fold touch
     different axes."""
@@ -367,9 +367,9 @@ def test_unet_fold_non_cubic_patch(rng, monkeypatch):
                                np.asarray(plain.apply(params, x)),
                                rtol=1e-4, atol=1e-5)
 
-    # auto fallback at batch > 1 (the measured-loss regime, PERF add.
-    # 18c): even on pretend-TPU the auto model must take the plain path
-    monkeypatch.setattr(L, "_fold_backend_ok", lambda: True)
+    # auto fallback at batch > 1: even with the backend gate open the
+    # auto model must take the plain path
+    monkeypatch.setattr(L, "FOLD_BACKENDS", frozenset({"cpu"}))
     calls = []
     real = fold_mod.conv3_folded
     monkeypatch.setattr(fold_mod, "conv3_folded",

@@ -1,4 +1,4 @@
-"""Keras->flax weight import + forward numerical parity.
+"""Keras -> parameter-tree weight import + forward numerical parity.
 
 This is the Dice-parity cornerstone: if the same weights produce the same
 probabilities on the same input, per-case Dice matches the reference by
@@ -217,7 +217,7 @@ def test_h5_roundtrip(pair, tmp_path):
 
 
 def test_export_unet_weights_forward_parity(pair):
-    """EXPORT direction (utils/keras_export.py): random flax weights pushed
+    """EXPORT direction (utils/keras_export.py): random model weights pushed
     onto the twin Keras model must produce the same probabilities — the
     reverse-migration counterpart of the import parity test."""
     import jax

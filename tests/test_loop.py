@@ -421,7 +421,7 @@ def test_peek_epoch_rejects_corrupt_sidecar(tmp_path):
     import json
     path = str(tmp_path / "x.ckpt")
     os.makedirs(path)
-    open(os.path.join(path, "_CHECKPOINT_METADATA"), "w").close()
+    open(os.path.join(path, "state.npz"), "w").close()  # exists() marker
     io = CheckpointIO(path)
     json.dump({"epoch": -1, "best_val": 0.0}, open(path + ".meta.json", "w"))
     assert io.peek_epoch() is None
@@ -434,7 +434,7 @@ def test_peek_epoch_rejects_corrupt_sidecar(tmp_path):
 def test_resume_warns_on_sidecar_checkpoint_mismatch(workdir, tmp_path,
                                                      capsys):
     """If the sidecar epoch (used to fast-forward the generators) and the
-    orbax payload epoch disagree — kill between the two writes, or a
+    checkpoint payload epoch disagree — kill between the two writes, or a
     checkpoint dir copied without its sidecar — the resume must say the
     data order is no longer exact instead of silently diverging."""
     import json
@@ -453,7 +453,7 @@ def test_resume_warns_on_sidecar_checkpoint_mismatch(workdir, tmp_path,
             training_patch_start_offset=(2, 2, 2), skip_blank=True, seed=0)
         state = create_train_state(model, cfg, jax.random.PRNGKey(0))
         train_model(model, state, cfg, tg, vg, n_t, n_v, verbose=False)
-        # stale sidecar: pretend it lags the orbax payload by one save
+        # stale sidecar: pretend it lags the checkpoint payload by one save
         json.dump({"epoch": 9, "best_val": 0.0},
                   open(cfg.model_file + ".meta.json", "w"))
         cfg2 = make_cfg(d, model_file=cfg.model_file, n_epochs=2,

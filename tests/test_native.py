@@ -13,11 +13,11 @@ pytestmark = pytest.mark.skipif(not native.available(),
 def _np_patch(data, shape, corner):
     """Pure-numpy oracle (duplicate of the fallback, native disabled)."""
     import os
-    os.environ["FETAL_TPU_NO_NATIVE"] = "1"
+    os.environ["FETAL_NO_NATIVE"] = "1"
     try:
         return P.get_patch_from_3d_data(data, shape, corner)
     finally:
-        os.environ["FETAL_TPU_NO_NATIVE"] = "0"
+        os.environ["FETAL_NO_NATIVE"] = "0"
 
 
 @pytest.mark.parametrize("corner", [(0, 0, 0), (-2, 3, 8), (8, 8, 8),

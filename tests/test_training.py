@@ -215,9 +215,8 @@ def test_restore_legacy_checkpoint_without_sched(tmp_path):
     """Checkpoints written before scheduler state was persisted (no 'sched'
     subtree) must still restore — with an empty sched dict (the loop then
     seeds schedulers from best_val as before)."""
-    import orbax.checkpoint as ocp
-
-    from fetal_mri_segmentation_tpu.training.checkpoint import CheckpointIO
+    from fetal_mri_segmentation_tpu.training.checkpoint import (
+        CheckpointIO, save_tree_npz)
 
     cfg = tiny_config(model_file=str(tmp_path / "legacy.ckpt"))
     model = build_model(cfg)
@@ -231,9 +230,8 @@ def test_restore_legacy_checkpoint_without_sched(tmp_path):
         "epoch": np.asarray(7),
         "best_val": np.asarray(-0.5, np.float64),
     }
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(cfg.model_file, payload, force=True)
-    ckptr.wait_until_finished()
+    os.makedirs(cfg.model_file)
+    save_tree_npz(payload, os.path.join(cfg.model_file, "state.npz"))
 
     io = CheckpointIO(cfg.model_file)
     restored, epoch, best_val, sched = io.restore(state)
@@ -245,3 +243,38 @@ def test_restore_legacy_checkpoint_without_sched(tmp_path):
     _, _, _, sched2 = io.restore(state)
     assert sched2 == {"plateau_best": -0.55, "plateau_wait": 2.0,
                       "early_best": -0.6, "early_wait": 1.0}
+
+
+def test_train_state_is_a_registered_pytree():
+    """TrainState flattens to its arrays (tx is static metadata) and
+    rebuilds from them — what jit, donation and the checkpoint rely on."""
+    cfg = tiny_config()
+    state = create_train_state(build_model(cfg), cfg, jax.random.PRNGKey(0))
+    leaves, treedef = jax.tree_util.tree_flatten(state)
+    assert all(isinstance(l, jax.Array) for l in leaves)
+    rebuilt = jax.tree_util.tree_unflatten(treedef, leaves)
+    assert rebuilt.tx is state.tx
+    assert int(rebuilt.replace(step=state.step + 1).step) == 1
+
+
+def test_checkpoint_roundtrip_exact_and_atomic(tmp_path):
+    """Every leaf (params, Adam moments, lr, step) restores bit-exactly,
+    and the write leaves no temporary file behind."""
+    from fetal_mri_segmentation_tpu.training.state import (
+        create_abstract_state)
+
+    cfg = tiny_config(model_file=str(tmp_path / "m.ckpt"), augment=False)
+    model = build_model(cfg)
+    state = create_train_state(model, cfg, jax.random.PRNGKey(0))
+    x, y = make_batch(cfg)
+    state, _ = make_train_step(model, cfg)(state, x, y,
+                                           jax.random.PRNGKey(1), None)
+    io = CheckpointIO(cfg.model_file)
+    io.save(state, epoch=3, best_val=-0.25)
+    assert sorted(os.listdir(cfg.model_file)) == ["state.npz"]
+    restored, epoch, best, _ = io.restore(create_abstract_state(model, cfg))
+    assert (epoch, best) == (3, -0.25)
+    for a, b in zip(jax.tree_util.tree_leaves(state),
+                    jax.tree_util.tree_leaves(restored)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -52,7 +52,15 @@ def fetch_training_data_files(data_dir: str, modalities, truth_name="truth"):
 
 
 def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
-         profile_dir: str = None, seed: int = 0, from_keras: str = None):
+         profile_dir: str = None, seed: int = 0, from_keras: str = None,
+         data_file=None):
+    """Build (or reuse) the dataset, build or resume the model, train;
+    returns the final train state.
+
+    ``data_file``: an already-open dataset (`DataFile`, e.g.
+    `DataFile.from_arrays`) to train on instead of ``config.data_file``;
+    ``data_dir`` is then unused.
+    """
     from fetal_mri_segmentation_tpu.utils.compilation_cache import (
         enable_compilation_cache)
     enable_compilation_cache()
@@ -82,7 +90,8 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
                                                      train_model)
 
     # 1. dataset build (cached unless overwrite — reference: write_data_to_file)
-    if overwrite or not os.path.exists(config.data_file):
+    if data_file is None and (overwrite
+                              or not os.path.exists(config.data_file)):
         files, subject_ids = fetch_training_data_files(
             data_dir, config.training_modalities)
         if not files:
@@ -98,7 +107,8 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
                            image_shape=config.image_shape,
                            subject_ids=subject_ids,
                            normalize=config.normalization)
-    data_file = open_data_file(config.data_file)
+    if data_file is None:
+        data_file = open_data_file(config.data_file)
 
     try:
         # 2. model + state (resume handled inside train_model via checkpoint).
@@ -157,7 +167,7 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
             skip_blank=config.skip_blank, seed=seed,
             start_epoch=start_epoch)
 
-        # 4. train (multi-device DP when >1 chip visible; hybrid
+        # 4. train (multi-device DP when >1 device visible; hybrid
         #    data x spatial mesh when spatial_devices > 1)
         n_dev = config.num_devices or len(jax.devices())
         n_spatial = getattr(config, "spatial_devices", 1) or 1
@@ -176,15 +186,16 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
                   f"{n_train} steps/epoch, {n_val} val steps")
 
         # device-resident case cache (single-device or pure-DP mesh): cases
-        # live in HBM, steps feed int32 patch indices instead of uploaded
-        # patch arrays (pipeline/device_cache.py; exact-parity with the
-        # host staging path; spatial/hybrid meshes keep host staging)
+        # live in device memory, steps feed int32 patch indices instead of
+        # uploaded patch arrays (pipeline/device_cache.py; exact-parity
+        # with the host staging path; spatial/hybrid meshes keep host
+        # staging)
         device_cache = None
         from fetal_mri_segmentation_tpu.pipeline.device_cache import (
             maybe_build_device_cache)
         # pin the interrupted run's data-order mode: the partial-cache
-        # decision otherwise reads LIVE free HBM, which may differ between
-        # the crashed run and this one — and partial batch grouping must
+        # decision otherwise reads LIVE free device memory, which may differ
+        # between the crashed run and this one — and partial batch grouping must
         # match for skip_batches to land on the same sequence. Legacy
         # sidecars (no field) resume as lockstep, the pre-partial behavior.
         resume_order = None
@@ -205,13 +216,13 @@ def main(config, data_dir: str, overwrite: bool = False, verbose: bool = True,
             # observability the reference lacked (SURVEY.md section 5.1)
             from fetal_mri_segmentation_tpu.utils.profiling import trace
             with trace(profile_dir):
-                train_model(model, state, config, tg, vg, n_train, n_val,
-                            mesh=mesh, seed=seed, verbose=verbose,
-                            device_cache=device_cache)
-        else:
-            train_model(model, state, config, tg, vg, n_train, n_val,
-                        mesh=mesh, seed=seed, verbose=verbose,
-                        device_cache=device_cache)
+                return train_model(model, state, config, tg, vg, n_train,
+                                   n_val, mesh=mesh, seed=seed,
+                                   verbose=verbose,
+                                   device_cache=device_cache)
+        return train_model(model, state, config, tg, vg, n_train, n_val,
+                           mesh=mesh, seed=seed, verbose=verbose,
+                           device_cache=device_cache)
     finally:
         data_file.close()
 
